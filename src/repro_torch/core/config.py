@@ -1,0 +1,122 @@
+"""ExecConfig: the one execution-configuration surface (port of
+``repro/core/config.py``).
+
+Every knob is execution strategy, never semantics: two runs of the same
+batch under different configs give the same results.  The port takes
+``config=`` only; the reference's deprecated per-keyword shims have no
+callers here.
+
+``block_q``, ``block_b`` and ``tile_table`` are the TPU kernel's tiling
+knobs.  The CUDA kernel runs one thread block per bucket and reads none of
+them; they are kept so that one config object serves both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+DEFAULT_MAX_RESULTS = 128  # per-batch RANGE output budget (static)
+
+
+def _pow2_bucket(n: int) -> int:
+    """Smallest power of two ≥ n (≥ 1) — the TileTable's size-bucketing."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class TileTable:
+    """Autotuned (block_q, block_b) per (build_size, batch_size) bucket.
+
+    ``entries`` rows are ``(build_bucket, batch_bucket, block_q, block_b)``
+    with power-of-two buckets; lookups round both sizes *up* to their
+    bucket and fall back to the nearest recorded bucket.
+    """
+
+    entries: tuple[tuple[int, int, int, int], ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "entries", tuple(tuple(int(x) for x in row) for row in self.entries)
+        )
+
+    def lookup(self, build_size: int, batch_size: int) -> tuple[int, int] | None:
+        """The tiles for the nearest recorded bucket (None on an empty table).
+
+        Distance is measured in octaves on both axes, with a deterministic
+        tie-break on the sorted entry order.
+        """
+        if not self.entries:
+            return None
+        want_b = _pow2_bucket(build_size).bit_length()
+        want_q = _pow2_bucket(batch_size).bit_length()
+        best = min(
+            sorted(self.entries),
+            key=lambda row: (
+                abs(row[0].bit_length() - want_b) + abs(row[1].bit_length() - want_q),
+                row,
+            ),
+        )
+        return best[2], best[3]
+
+    def to_json(self) -> list[list[int]]:
+        return [list(row) for row in sorted(self.entries)]
+
+    @classmethod
+    def from_json(cls, rows) -> "TileTable":
+        return cls(entries=tuple(tuple(int(x) for x in row) for row in rows or ()))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecConfig:
+    """Execution strategy for one engine call chain.  Frozen + hashable.
+
+    ``impl``         — ``"auto" | "fused" | "reference"`` executor choice.
+    ``pipeline``     — ``"auto"`` and ``"off"`` run the one CUDA kernel;
+                       ``"on"`` (the double-buffered variant) raises
+                       ``NotImplementedError`` until it is ported.
+    ``donate``       — accepted and ignored: the port never writes its input
+                       state, as JAX ignores donation on the CPU.
+    ``block_q``/``block_b``/``tile_table`` — TPU tiling knobs, unread by
+                       the CUDA launch.
+    ``max_results``  — per-batch dense RANGE output budget (static).
+    ``capacity``/``routing`` — sharded-engine knobs, unread by this slice.
+    ``validate``     — run ``check_invariants`` on results (``apply_ops_safe``).
+    ``validate_ranges`` — run ``check_range_results`` (``apply_ops_safe``).
+    """
+
+    impl: str = "auto"
+    pipeline: str = "auto"
+    donate: bool = False
+    block_q: int | None = None
+    block_b: int | None = None
+    tile_table: TileTable | None = None
+    max_results: int = DEFAULT_MAX_RESULTS
+    capacity: int | None = None
+    routing: str = "replicated"
+    validate: bool = False
+    validate_ranges: bool = False
+
+    def __post_init__(self):
+        if self.impl not in ("auto", "fused", "reference"):
+            raise ValueError(f"unknown impl: {self.impl!r}")
+        if self.pipeline not in ("auto", "on", "off"):
+            raise ValueError(f"unknown pipeline mode: {self.pipeline!r}")
+        if self.routing not in ("replicated", "a2a"):
+            raise ValueError(f"unknown routing: {self.routing!r}")
+
+    def replace(self, **kw) -> "ExecConfig":
+        return dataclasses.replace(self, **kw)
+
+    def resolve_blocks(
+        self, build_size: int, batch_size: int
+    ) -> tuple[int | None, int | None]:
+        """The (block_q, block_b) a TPU launch would take: explicit overrides
+        win, then the tile table, then (None, None)."""
+        bq, bb = self.block_q, self.block_b
+        if (bq is None or bb is None) and self.tile_table is not None:
+            hit = self.tile_table.lookup(build_size, batch_size)
+            if hit is not None:
+                bq = bq if bq is not None else hit[0]
+                bb = bb if bb is not None else hit[1]
+        return bq, bb

@@ -1,0 +1,362 @@
+"""Mixed-operation batch engine (port of ``repro/core/ops.py``; paper §4.1).
+
+The execution unit is one key-sorted batch per step: ``make_ops`` does the
+one global sort, and ``apply_ops`` routes the whole mixed batch once with
+``bucket_slices``.  Per-type views are derived from that routing with no
+second sort: order-preserving prefix-count scatters compact the insert and
+delete keys, and their per-bucket slice boundaries are prefix counts of
+the single routing.
+
+Within a batch the semantics are update-then-read:
+
+  1. INSERT ops merge in first (upsert — incoming value wins),
+  2. DELETE ops remove physically (present-key hits only),
+  3. POINT, SUCCESSOR, and RANGE ops observe the post-update state.
+
+RANGE reuses the key column for ``lo`` and the val column for ``hi`` and
+answers the half-open ``[lo, hi)``; each batch carries one static
+``max_results`` output budget.
+
+Two executors sit behind one contract (``ExecConfig.impl``): the plain
+torch *reference* engine, which shares ``insert_with_slices``, ``delete``
+and the ``core.query`` reads, and the *fused* path of
+``kernels/flix_apply``, one CUDA thread block per bucket.  Precondition: at
+most one update op (INSERT or DELETE) per key per batch.  ``OP_NOP`` slots
+(key ``EMPTY``) pad a batch to a fixed size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.batch import bucket_slices
+from repro_torch.core.config import DEFAULT_MAX_RESULTS, ExecConfig
+from repro_torch.core.delete import delete
+from repro_torch.core.insert import insert_with_slices
+from repro_torch.core.invariants import check_invariants, check_range_results
+from repro_torch.core.query import dense_range_scan, point_query, successor_query
+from repro_torch.core.restructure import restructure_grow
+from repro_torch.core.state import (
+    EMPTY,
+    KEY_DTYPE,
+    NOT_FOUND,
+    VAL_DTYPE,
+    FliXState,
+    resolve_device,
+)
+
+OP_INSERT = 0
+OP_DELETE = 1
+OP_POINT = 2
+OP_SUCCESSOR = 3
+OP_NOP = 4  # padding slot; key must be EMPTY so it routes past every bucket
+OP_RANGE = 5  # key column = lo, val column = hi; answers [lo, hi)
+
+OP_DTYPE = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class OpBatch:
+    """A key-sorted batch of tagged operations."""
+
+    tag: torch.Tensor  # [N] int32
+    key: torch.Tensor  # [N] int32, ascending (EMPTY = NOP padding, at end)
+    val: torch.Tensor  # [N] int32 (INSERT: value; RANGE: exclusive hi)
+    # per-op expiry column of the reference's TTL layer; carried only so
+    # that ``apply_ops`` can refuse a TTL batch
+    exp: torch.Tensor | None = None
+
+    @property
+    def size(self) -> int:
+        return self.key.shape[0]
+
+
+def make_ops(tags, keys, vals=None, *, pad_to: int | None = None, device=None):
+    """Sort a raw operation list by key into an :class:`OpBatch`.
+
+    This is the engine's one global sort.  Returns ``(ops, perm)`` where
+    ``perm[j]`` is the sorted position input op ``j`` landed at, so
+    :func:`unsort` maps per-op results back to submission order.  The batch
+    lives on ``device``: the card unless the caller names another.
+    ``pad_to`` appends ``OP_NOP`` slots up to a fixed size.
+    """
+    dev = resolve_device(device)
+    tags = torch.as_tensor(tags).to(device=dev, dtype=OP_DTYPE)
+    keys = torch.as_tensor(keys).to(device=dev, dtype=KEY_DTYPE)
+    if vals is None:
+        vals = torch.zeros(keys.shape, dtype=VAL_DTYPE, device=dev)
+    vals = torch.as_tensor(vals).to(device=dev, dtype=VAL_DTYPE)
+    if pad_to is not None and pad_to > keys.shape[0]:
+        extra = pad_to - keys.shape[0]
+        tags = torch.cat([tags, tags.new_full((extra,), OP_NOP)])
+        keys = torch.cat([keys, keys.new_full((extra,), EMPTY)])
+        vals = torch.cat([vals, vals.new_zeros((extra,))])
+    order = torch.argsort(keys, stable=True)
+    # inverse permutation (input position -> sorted position) by O(N) scatter
+    perm = torch.empty_like(order)
+    perm[order] = torch.arange(order.shape[0], device=dev)
+    return OpBatch(tag=tags[order], key=keys[order], val=vals[order]), perm
+
+
+def unsort(sorted_result: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Map a sorted-order result array back to submission order."""
+    return sorted_result[perm]
+
+
+def _compact_by_mask(
+    keys: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor | None = None
+):
+    """Front-pack ``keys[mask]`` preserving order; EMPTY tail.  No sort:
+    destinations are a prefix count, so ascending order is preserved."""
+    n = keys.shape[0]
+    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, n)  # n = discard slot
+    out_k = keys.new_full((n + 1,), EMPTY).scatter_(0, dest, keys)[:n]
+    if vals is None:
+        return out_k
+    out_v = vals.new_zeros((n + 1,)).scatter_(0, dest, vals)[:n]
+    return out_k, out_v
+
+
+@dataclasses.dataclass(frozen=True)
+class Routing:
+    """The single routing of a mixed batch and the per-type views derived
+    from it: op slices ``[starts[b], ends[b])`` of the sorted batch, the
+    compacted insert and delete keys, and their per-bucket slices."""
+
+    starts: torch.Tensor
+    ends: torch.Tensor
+    is_ins: torch.Tensor
+    is_del: torch.Tensor
+    ins_keys: torch.Tensor
+    ins_vals: torch.Tensor
+    del_keys: torch.Tensor
+    ins_starts: torch.Tensor
+    ins_ends: torch.Tensor
+    del_starts: torch.Tensor
+    del_ends: torch.Tensor
+
+
+def _prefix_counts(mask: torch.Tensor) -> torch.Tensor:
+    counts = torch.cumsum(mask, 0, dtype=torch.int32)
+    return torch.cat([counts.new_zeros((1,)), counts])
+
+
+def route(state: FliXState, tag: torch.Tensor, key: torch.Tensor, val: torch.Tensor):
+    """One ``bucket_slices`` routing of the whole batch, plus the insert and
+    delete views mapped onto it by prefix counts (no second sort, no second
+    fence routing).  Shared by both executors."""
+    starts, ends = bucket_slices(state, key)
+    is_ins = tag == OP_INSERT
+    is_del = tag == OP_DELETE
+    ins_keys, ins_vals = _compact_by_mask(key, is_ins, val)
+    del_keys = _compact_by_mask(key, is_del)
+    c_ins = _prefix_counts(is_ins)
+    c_del = _prefix_counts(is_del)
+    return Routing(
+        starts=starts,
+        ends=ends,
+        is_ins=is_ins,
+        is_del=is_del,
+        ins_keys=ins_keys,
+        ins_vals=ins_vals,
+        del_keys=del_keys,
+        ins_starts=c_ins[starts],
+        ins_ends=c_ins[ends],
+        del_starts=c_del[starts],
+        del_ends=c_del[ends],
+    )
+
+
+def derive_type_views(
+    state: FliXState, tag: torch.Tensor, key: torch.Tensor, val: torch.Tensor
+):
+    """The reference's view tuple ``(is_ins, is_del, ins_keys, ins_vals,
+    del_keys, ins_starts, ins_ends)`` of :func:`route`."""
+    r = route(state, tag, key, val)
+    return (
+        r.is_ins,
+        r.is_del,
+        r.ins_keys,
+        r.ins_vals,
+        r.del_keys,
+        r.ins_starts,
+        r.ins_ends,
+    )
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _apply_ops_reference(
+    state: FliXState, ops: OpBatch, *, max_results: int = DEFAULT_MAX_RESULTS
+):
+    """Reference engine: five plain-torch phases (the fused path's oracle).
+
+    An absent op class skips its phase (the reference's ``lax.cond``
+    becomes a host-side ``if`` on ``bool(mask.any())``).
+    """
+    dev = state.device
+    tag, key, val = ops.tag, ops.key, ops.val
+    n = key.shape[0]
+    is_ins, is_del, ins_keys, ins_vals, del_keys, ins_starts, ins_ends = (
+        derive_type_views(state, tag, key, val)
+    )
+
+    # --- update phase: merge inserts, then physical deletes ---------------
+    if bool(is_ins.any()):
+        s1, ins_stats = insert_with_slices(
+            state, ins_keys, ins_vals, ins_starts, ins_ends
+        )
+    else:
+        s1 = state
+        ins_stats = {"inserted": _zero(dev), "overflowed_buckets": _zero(dev)}
+    if bool(is_del.any()):
+        s2, del_stats = delete(s1, del_keys)
+    else:
+        s2, del_stats = s1, {"deleted": _zero(dev)}
+
+    # --- read phase: flipped compare-count against the updated state ------
+    is_point = tag == OP_POINT
+    is_succ = tag == OP_SUCCESSOR
+    miss = torch.full((n,), NOT_FOUND, dtype=VAL_DTYPE, device=dev)
+    pv = point_query(s2, key) if bool(is_point.any()) else miss
+    if bool(is_succ.any()):
+        sk, sv = successor_query(s2, key)
+    else:
+        sk, sv = torch.full((n,), EMPTY, dtype=KEY_DTYPE, device=dev), miss
+
+    # --- range phase: dense [lo, hi) scans against the updated state ------
+    is_range = tag == OP_RANGE
+    if bool(is_range.any()):
+        rk, rv, rstart, rcnt, rtrunc = dense_range_scan(
+            s2, is_range, key, val, max_results=max_results
+        )
+    else:
+        rk = torch.full((max_results,), EMPTY, dtype=KEY_DTYPE, device=dev)
+        rv = torch.full((max_results,), NOT_FOUND, dtype=VAL_DTYPE, device=dev)
+        rstart = torch.zeros((n,), dtype=torch.int32, device=dev)
+        rcnt, rtrunc = torch.zeros_like(rstart), _zero(dev)
+
+    results = {
+        "value": torch.where(is_point, pv, torch.where(is_succ, sv, NOT_FOUND)),
+        "succ_key": torch.where(is_succ, sk, EMPTY),
+        "range_key": rk,
+        "range_val": rv,
+        "range_start": rstart,
+        "range_count": rcnt,
+    }
+    stats = {
+        "inserted": ins_stats["inserted"],
+        "deleted": del_stats["deleted"],
+        "overflowed_buckets": ins_stats["overflowed_buckets"],
+        "range_truncated": rtrunc,
+    }
+    return s2, results, stats
+
+
+def _apply_ops_plain(state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig):
+    """Dispatch one TTL-free batch to the chosen executor (impl resolved)."""
+    if impl == "reference":
+        return _apply_ops_reference(state, ops, max_results=cfg.max_results)
+    if impl != "fused":
+        raise ValueError(f"unknown apply_ops impl: {impl!r}")
+    if cfg.pipeline == "on":
+        raise NotImplementedError(
+            "pipeline='on': the double-buffered (cp.async/TMA-staged) flix_apply "
+            "is not ported yet (ROADMAP Queue 2 item 1)"
+        )
+    from repro_torch.kernels.flix_apply import flix_apply
+
+    return flix_apply(state, ops.tag, ops.key, ops.val, max_results=cfg.max_results)
+
+
+def apply_ops(
+    state: FliXState,
+    ops: OpBatch,
+    *,
+    config: ExecConfig | None = None,
+    has_updates: bool | None = None,
+):
+    """Execute one mixed sorted batch on the state's device.  Returns
+    ``(state', results, stats)``.
+
+    ``results`` is aligned with the sorted batch:
+      * ``value``    — POINT: stored value or NOT_FOUND; SUCCESSOR: successor
+                       value or NOT_FOUND; other tags: NOT_FOUND.
+      * ``succ_key`` — SUCCESSOR: smallest stored key ≥ op key (post-update)
+                       or EMPTY; other tags: EMPTY.
+      * ``range_key`` / ``range_val`` — the dense ``[max_results]`` RANGE
+        output, EMPTY / NOT_FOUND beyond the emitted total.
+      * ``range_start`` / ``range_count`` — per-op offset and length of its
+        segment (0 / 0 for non-RANGE ops); truncation is flagged in
+        ``stats["range_truncated"]``.
+
+    ``config.impl`` selects the executor: ``"reference"`` (plain torch),
+    ``"fused"`` (``kernels.flix_apply``: the CUDA kernel on the card, its
+    plain version on the CPU), or ``"auto"`` — fused on CUDA for batches
+    that contain updates, reference otherwise.  ``has_updates`` answers that
+    check without a device sync when the caller already knows.
+
+    On bucket overflow the returned state carries ``needs_restructure`` and
+    the overflowing buckets are untrustworthy; hosts use
+    :func:`apply_ops_safe`.
+    """
+    cfg = config if config is not None else ExecConfig()
+    if state.exps is not None or ops.exp is not None:
+        raise NotImplementedError(
+            "TTL state or batch (exps): the expiry layer is not ported yet "
+            "(ROADMAP Queue 1 item 6)"
+        )
+    impl = cfg.impl
+    if impl == "auto":
+        if state.device.type != "cuda":
+            impl = "reference"
+        else:
+            if has_updates is None:
+                has_updates = bool(
+                    ((ops.tag == OP_INSERT) | (ops.tag == OP_DELETE)).any()
+                )
+            impl = "fused" if has_updates else "reference"
+    return _apply_ops_plain(state, ops, impl=impl, cfg=cfg)
+
+
+def apply_ops_safe(
+    state: FliXState,
+    ops: OpBatch,
+    *,
+    config: ExecConfig | None = None,
+    has_updates: bool | None = None,
+):
+    """Host-level loop: apply, restructure-and-retry on overflow.
+
+    The retry replays the whole batch on the regrown pre-batch state, which
+    is safe because ``apply_ops`` never writes its input.
+    ``config.validate_ranges`` runs ``check_range_results`` on the results
+    and ``config.validate`` runs ``check_invariants`` on the result state.
+    The returned ``stats`` gains ``restructure_retries`` (host int).
+    """
+    cfg = config if config is not None else ExecConfig()
+    run_cfg = cfg.replace(validate=False, validate_ranges=False)
+    restructure_retries = 0
+    new_state, results, stats = apply_ops(
+        state, ops, config=run_cfg, has_updates=has_updates
+    )
+    if bool(new_state.needs_restructure) and not bool(state.needs_restructure):
+        n_ins = int((ops.tag == OP_INSERT).sum())
+        grown = restructure_grow(state, extra_keys=max(n_ins, 1))
+        new_state, results, stats = apply_ops(
+            grown, ops, config=run_cfg, has_updates=has_updates
+        )
+        if bool(new_state.needs_restructure):
+            raise RuntimeError("batch overflowed the geometry restructure_grow planned")
+        restructure_retries = 1
+    stats = dict(stats)
+    stats["restructure_retries"] = restructure_retries
+    if cfg.validate_ranges:
+        check_range_results(ops, results, max_results=cfg.max_results)
+    if cfg.validate:
+        check_invariants(new_state)
+    return new_state, results, stats

@@ -1,0 +1,92 @@
+"""Restructuring (port of ``repro/core/restructure.py``; paper §3.5).
+
+Flattens every bucket's chain, and re-emits a uniform half-full structure
+aligned to the current key distribution: one global sort plus the standard
+build.  The host only chooses the new static geometry.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.build import build_from_sorted, plan_geometry
+from repro_torch.core.state import FliXState
+
+
+def restructure(
+    state: FliXState,
+    *,
+    num_buckets: int,
+    nodes_per_bucket: int | None = None,
+    node_size: int | None = None,
+    fill: float = 0.5,
+) -> FliXState:
+    """Rebuild into the given geometry from the current live contents."""
+    if state.exps is not None:
+        raise NotImplementedError(
+            "restructure of a TTL state: the expiry plane is not ported yet "
+            "(ROADMAP Queue 1 item 6)"
+        )
+    npb = nodes_per_bucket or state.nodes_per_bucket
+    ns = node_size or state.node_size
+    flat_k = state.keys.reshape(-1)
+    flat_v = state.vals.reshape(-1)
+    order = torch.argsort(flat_k, stable=True)  # EMPTY sentinels sort last
+    return build_from_sorted(
+        flat_k[order],
+        flat_v[order],
+        num_buckets=num_buckets,
+        nodes_per_bucket=npb,
+        node_size=ns,
+        fill=fill,
+    )
+
+
+def plan(state: FliXState, *, extra_keys: int = 0, fill: float = 0.5):
+    """Host-side geometry planning from the current live count."""
+    live = int(state.live_keys()) + extra_keys
+    return plan_geometry(
+        live,
+        node_size=state.node_size,
+        nodes_per_bucket=state.nodes_per_bucket,
+        fill=fill,
+    )
+
+
+def restructure_auto(state: FliXState, *, fill: float = 0.5) -> FliXState:
+    """Restructure to the geometry the initial build would choose now."""
+    nb, npb, ns = plan(state, fill=fill)
+    return restructure(
+        state, num_buckets=nb, nodes_per_bucket=npb, node_size=ns, fill=fill
+    )
+
+
+def restructure_grow(
+    state: FliXState, *, extra_keys: int, fill: float = 0.5
+) -> FliXState:
+    """Restructure sized for ``extra_keys`` more keys (overflow recovery).
+
+    With ``fill`` ≤ 1/2 the new buckets are half full, so a following
+    insert of ``extra_keys`` keys can at most double any bucket's content.
+    Worst-case skew (every new key in one bucket) is covered by widening
+    ``nodes_per_bucket`` so that one bucket can absorb the whole batch —
+    the reference's sizing, kept as it is (ROADMAP Queue 3 logs what it
+    asks for at full size).
+    """
+    live = int(state.live_keys())
+    p = max(1, int(state.node_size * fill))
+    nb = max(1, math.ceil((live + extra_keys) / p))
+    cap = state.nodes_per_bucket * state.node_size
+    if p + extra_keys > cap:
+        npb = math.ceil((p + extra_keys) / state.node_size)
+    else:
+        npb = state.nodes_per_bucket
+    return restructure(
+        state,
+        num_buckets=nb,
+        nodes_per_bucket=npb,
+        node_size=state.node_size,
+        fill=fill,
+    )

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA library.
+
+``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared library
+with a plain C interface, which ``ctypes`` loads.  The build runs at first
+use, from the package's own sources only, into ``_build/`` beside them (git
+ignores it).  The library's name carries a hash of the sources, so an edit
+rebuilds it.  A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",  # registers, shared memory and spills per kernel, into the build log
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: (argtypes, restype); every pointer and the stream is a
+# c_void_p, or ctypes would pass them as 32-bit ints and cut them
+SIGNATURES = {
+    "flix_apply_smem_bytes": ([_I, _I], _I),
+    "flix_smem_optin_bytes": ([], _I),
+    "flix_apply_launch": ([_P] * 23 + [_I, _I, _I, _P], _I),
+    "flix_range_gather_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: building the kernels needs the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libflix_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library if it is not built yet.  Returns its path and
+    nvcc's output (empty when it was already built)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cus = [str(f) for f in sources() if f.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The built library, with every entry point's signature declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib

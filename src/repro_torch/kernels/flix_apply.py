@@ -1,0 +1,545 @@
+"""Fused compute-to-bucket apply (port of ``repro/kernels/flix_apply.py``).
+
+One CUDA thread block per bucket does all of a bucket's work in one visit
+(the paper's flipped indexing, §4.1): it pulls its slices of the sorted
+batch, upsert-merges the inserts with original-node-region re-chunking,
+deletes with in-node and chain compaction, writes the new stripe and its
+metadata, and answers the bucket's POINT ops and in-bucket SUCCESSOR
+candidates against the post-update stripe in shared memory
+(``csrc/flix_apply.cu``).  A second launch fills the dense RANGE output,
+one thread per slot.
+
+Host side (:func:`flix_apply`, the port of ``_fused_apply``): the single
+routing (``core.ops.route``), then the stripe pass, then two small steps
+that the TPU wrapper predicted *before* its one launch and that run here
+*between* the two launches, from the exact post-update state:
+
+  * the successor fence rows (``_successor_fence_rows`` of the new state,
+    O(nb)) resolve SUCCESSOR ops past their bucket's largest key;
+  * the RANGE rank plumbing (post-update live-count prefix ``pref`` and
+    each op's ``[lo, hi)`` ranks by node search, O(N·(npb+ns))) feeds the
+    shared ``range_offsets``/``range_slot_ranks`` formulas.
+
+That replaces the reference's O(state) delete-membership pass and its
+per-bucket sort of (survivors ∪ insert slice), and needs no [nb, cap]
+insert or delete tiles: a block reads its slices straight from the
+compacted batch, so no present-key filter is needed to bound them either.
+
+Every launch wrapper checks its tensors, runs the kernel's plain torch
+version when they lie on the CPU (that is how the CPU tests run), launches
+the kernel on the current stream when they lie on the card, checks the
+launch's error code, and counts the launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.batch import gather_kv_sublists
+from repro_torch.core.config import DEFAULT_MAX_RESULTS
+from repro_torch.core.ops import OP_POINT, OP_RANGE, OP_SUCCESSOR, route
+from repro_torch.core.query import (
+    _bucket_index,
+    _successor_fence_rows,
+    range_offsets,
+    range_slot_ranks,
+)
+from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
+from repro_torch.kernels._build import load_library
+
+# launches per kernel since the last reset; a run reads these to show that
+# its main path went through the kernels
+LAUNCHES = {"flix_apply": 0, "flix_apply_range": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# the stripe pass's inputs, in the order of the C entry point
+_PASS_INPUTS = (
+    "keys",
+    "vals",
+    "node_max",
+    "ins_keys",
+    "ins_vals",
+    "ins_starts",
+    "ins_ends",
+    "del_keys",
+    "del_starts",
+    "del_ends",
+    "tag",
+    "key",
+    "op_starts",
+    "op_ends",
+)
+
+
+def _check(device: torch.device, names, tensors) -> None:
+    """Every tensor: int32, contiguous, on ``device``."""
+    for name, t in zip(names, tensors):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.device != device:
+            raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# launch 1: the stripe pass
+# ---------------------------------------------------------------------------
+
+
+def stripe_inputs(state: FliXState, tag, key, val):
+    """Route a sorted batch and return ``(args, routing)``: the inputs of
+    :func:`flix_apply_pass` in order, and the routing they came from."""
+    r = route(state, tag, key, val)
+    args = (
+        state.keys,
+        state.vals,
+        state.node_max,
+        r.ins_keys,
+        r.ins_vals,
+        r.ins_starts,
+        r.ins_ends,
+        r.del_keys,
+        r.del_starts,
+        r.del_ends,
+        tag,
+        key,
+        r.starts,
+        r.ends,
+    )
+    return args, r
+
+
+def flix_apply_pass(
+    keys,
+    vals,
+    node_max,
+    ins_keys,
+    ins_vals,
+    ins_starts,
+    ins_ends,
+    del_keys,
+    del_starts,
+    del_ends,
+    tag,
+    key,
+    op_starts,
+    op_ends,
+):
+    """Merge + delete + reads for every bucket; the CUDA kernel on the card,
+    :func:`flix_apply_reference` on the CPU.
+
+    ``keys``/``vals`` [nb, npb, ns] and ``node_max`` [nb, npb] are the
+    pre-batch state; ``ins_*``/``del_*`` the compacted sorted insert and
+    delete keys with their per-bucket ``[start, end)`` slices; ``tag``/
+    ``key`` the sorted batch with the per-bucket op slices.  Returns
+    ``(keys, vals, node_count, node_max, num_nodes, overflow, deleted,
+    value, succ_key)``; SUCCESSOR ops with no in-bucket successor come back
+    as (NOT_FOUND, EMPTY).
+    """
+    nb, npb, ns = keys.shape
+    n = key.shape[0]
+    dev = keys.device
+    args = (
+        keys,
+        vals,
+        node_max,
+        ins_keys,
+        ins_vals,
+        ins_starts,
+        ins_ends,
+        del_keys,
+        del_starts,
+        del_ends,
+        tag,
+        key,
+        op_starts,
+        op_ends,
+    )
+    _check(dev, _PASS_INPUTS, args)
+    if vals.shape != keys.shape or node_max.shape != (nb, npb):
+        raise ValueError("keys, vals and node_max disagree in geometry")
+    bounds = (ins_starts, ins_ends, del_starts, del_ends, op_starts, op_ends)
+    if any(t.shape != (nb,) for t in bounds):
+        raise ValueError(f"per-bucket slice bounds must have shape ({nb},)")
+    if ins_vals.shape != ins_keys.shape or tag.shape != key.shape:
+        raise ValueError("batch columns disagree in length")
+    if dev.type == "cpu":
+        return flix_apply_reference(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"flix_apply runs on CUDA or the CPU, not {dev}")
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        need = lib.flix_apply_smem_bytes(npb, ns)
+        limit = lib.flix_smem_optin_bytes()
+        if need > limit:
+            raise ValueError(
+                f"geometry (npb={npb}, ns={ns}) needs {need} bytes of shared "
+                f"memory per block; this card allows {limit}"
+            )
+        outs = (
+            torch.empty_like(keys),
+            torch.empty_like(vals),
+            torch.empty_like(node_max),
+            torch.empty_like(node_max),
+            torch.empty((nb,), dtype=torch.int32, device=dev),
+            torch.empty((nb,), dtype=torch.int32, device=dev),
+            torch.empty((nb,), dtype=torch.int32, device=dev),
+            torch.full((n,), NOT_FOUND, dtype=torch.int32, device=dev),
+            torch.full((n,), EMPTY, dtype=torch.int32, device=dev),
+        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flix_apply_launch(
+            *(_ptr(t) for t in args + outs), nb, npb, ns, ctypes.c_void_p(stream)
+        )
+    if err != 0:
+        raise RuntimeError(f"flix_apply launch failed with CUDA error {err}")
+    LAUNCHES["flix_apply"] += 1
+    return outs
+
+
+def _dest(rank, r, m_j, s_j, f_j, base_j, keep, npb, ns, dump):
+    """The balanced re-chunk slot of each merged element (``chunk_dest``)."""
+    m_r = torch.clamp(m_j.gather(1, r), min=1)
+    s_r = torch.clamp(s_j.gather(1, r), min=1)
+    rr = rank - f_j.gather(1, r)
+    piece = (rr * s_r) // m_r
+    start = (piece * m_r + s_r - 1) // s_r
+    slot = base_j.gather(1, r) + piece
+    return torch.where(keep & (slot < npb), slot * ns + (rr - start), dump).long()
+
+
+def _stripe_chunk(A, Av, nmax, B, Bv, del_keys, ds, de, npb, ns):
+    """The plain stripe pass of one chunk of buckets (``flix_apply_kernel``'s
+    phases, batched over the leading bucket dimension)."""
+    C, S = A.shape
+    dev = A.device
+    cap = S
+    lane = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+
+    # merge: stripe keys not upserted, ranked by a scan
+    validA = A != EMPTY
+    lbB = torch.searchsorted(B, A)
+    dup = validA & (B.gather(1, torch.clamp(lbB, max=cap - 1)) == A)
+    keepA = validA & ~dup
+    incl = torch.cumsum(keepA, 1, dtype=torch.int32)
+    exA = incl - keepA.to(torch.int32)
+    kept_at = torch.where(keepA, exA, S).long()
+    K = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
+    K.scatter_(1, kept_at, A)
+    K = K[:, :S].contiguous()
+
+    validB = B != EMPTY
+    onn_c = torch.clamp((nmax != EMPTY).sum(1) - 1, min=0)[:, None]
+    regA = torch.minimum(torch.searchsorted(nmax, A), onn_c)
+    regB = torch.minimum(torch.searchsorted(nmax, B), onn_c)
+    m_j = torch.zeros((C, npb), dtype=torch.int32, device=dev)
+    m_j.scatter_add_(1, regA, keepA.to(torch.int32))
+    m_j.scatter_add_(1, regB, validB.to(torch.int32))
+    s_j = (m_j + ns - 1) // ns
+    f_j = torch.cumsum(m_j, 1, dtype=torch.int32) - m_j
+    base_j = torch.cumsum(s_j, 1, dtype=torch.int32) - s_j
+
+    rankA = exA + lbB.to(torch.int32)
+    rankB = torch.searchsorted(K, B, out_int32=True) + lane
+    destA = _dest(rankA, regA, m_j, s_j, f_j, base_j, keepA, npb, ns, S)
+    destB = _dest(rankB, regB, m_j, s_j, f_j, base_j, validB, npb, ns, S)
+    M = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
+    Mv = torch.zeros((C, S + 1), dtype=torch.int32, device=dev)
+    M.scatter_(1, destA, A)
+    M.scatter_(1, destB, B)
+    Mv.scatter_(1, destA, Av)
+    Mv.scatter_(1, destB, Bv)
+    M, Mv = M[:, :S], Mv[:, :S]
+
+    # delete: a hit is a stored key found in the bucket's delete slice
+    hit = torch.zeros_like(M, dtype=torch.bool)
+    if del_keys.shape[0] > 0:
+        p = torch.searchsorted(del_keys, M.reshape(-1), out_int32=True)
+        p = p.reshape(C, S)
+        found = del_keys[torch.clamp(p, max=del_keys.shape[0] - 1)] == M
+        hit = (p >= ds[:, None]) & (p < de[:, None]) & found & (M != EMPTY)
+    keep = (M != EMPTY) & ~hit
+    ex = torch.cumsum(keep, 1, dtype=torch.int32) - keep.to(torch.int32)
+    node_of = lane // ns
+    in_node = ex - ex[:, ::ns].gather(1, node_of.expand(C, -1).long())
+    cnt = keep.reshape(C, npb, ns).sum(2, dtype=torch.int32)
+    nonempty = cnt > 0
+    slot = torch.cumsum(nonempty, 1, dtype=torch.int32) - 1
+    dest = slot.gather(1, node_of.expand(C, -1).long()) * ns + in_node
+    dest = torch.where(keep, dest, S).long()
+    F = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
+    Fv = torch.zeros((C, S + 1), dtype=torch.int32, device=dev)
+    F.scatter_(1, dest, M)
+    Fv.scatter_(1, dest, Mv)
+    F, Fv = F[:, :S].reshape(C, npb, ns), Fv[:, :S].reshape(C, npb, ns)
+
+    ocnt = (F != EMPTY).sum(2, dtype=torch.int32)
+    last = torch.clamp(ocnt - 1, min=0).long()[..., None]
+    omax = torch.where(ocnt > 0, F.gather(2, last)[..., 0], EMPTY)
+    onn = (ocnt > 0).sum(1, dtype=torch.int32)
+    overflow = (s_j.sum(1) > npb).to(torch.int32)
+    return F, Fv, ocnt, omax, onn, overflow, hit.sum(1, dtype=torch.int32)
+
+
+def flix_apply_reference(
+    keys,
+    vals,
+    node_max,
+    ins_keys,
+    ins_vals,
+    ins_starts,
+    ins_ends,
+    del_keys,
+    del_starts,
+    del_ends,
+    tag,
+    key,
+    op_starts,
+    op_ends,
+):
+    """Plain torch version of the stripe pass: same inputs and outputs as
+    :func:`flix_apply_pass`, written from the kernel's formulas and run in
+    bucket chunks.  The CPU path of the wrapper and the card's yardstick
+    for the kernel's results."""
+    nb, npb, ns = keys.shape
+    S = npb * ns
+    n = key.shape[0]
+    dev = keys.device
+    per_bucket = (
+        torch.empty_like(keys),  # keys
+        torch.empty_like(vals),  # vals
+        torch.empty_like(node_max),  # node_count
+        torch.empty_like(node_max),  # node_max
+        torch.empty((nb,), dtype=torch.int32, device=dev),  # num_nodes
+        torch.empty((nb,), dtype=torch.int32, device=dev),  # overflow
+        torch.empty((nb,), dtype=torch.int32, device=dev),  # deleted
+    )
+    for c0, c1 in bucket_chunks(nb, 4 * S):
+        B, Bv, _, _ = gather_kv_sublists(
+            ins_keys, ins_vals, ins_starts[c0:c1], ins_ends[c0:c1], S
+        )
+        chunk = _stripe_chunk(
+            keys[c0:c1].reshape(c1 - c0, S),
+            vals[c0:c1].reshape(c1 - c0, S),
+            node_max[c0:c1],
+            B,
+            Bv,
+            del_keys,
+            del_starts[c0:c1],
+            del_ends[c0:c1],
+            npb,
+            ns,
+        )
+        for out, part in zip(per_bucket, chunk):
+            out[c0:c1] = part
+    out_k, out_v, _, omax, onn, _, _ = per_bucket
+
+    # reads: op i belongs to the bucket whose slice [op_starts, op_ends)
+    # holds it, and reads that bucket's post-update stripe
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    b = torch.searchsorted(op_ends, idx, right=True, out_int32=True)
+    bc = torch.clamp(b, max=nb - 1)
+    owned = (b < nb) & (idx >= op_starts[bc])
+    is_point = owned & (tag == OP_POINT)
+    is_succ = owned & (tag == OP_SUCCESSOR)
+    nidx = (omax[bc] < key[:, None]).sum(1, dtype=torch.int32)
+    node = torch.clamp(nidx, max=npb - 1)
+    row = out_k[bc, node]
+    raw_pos = (row < key[:, None]).sum(1, dtype=torch.int32)
+    pos = torch.clamp(raw_pos, max=ns - 1)
+    key_at = out_k[bc, node, pos]
+    val_at = out_v[bc, node, pos]
+    use_in = (nidx < onn[bc]) & (raw_pos < ns)
+    value = torch.where(is_point & use_in & (key_at == key), val_at, NOT_FOUND)
+    value = torch.where(is_succ & use_in, val_at, value)
+    succ_key = torch.where(is_succ & use_in, key_at, EMPTY)
+    return (*per_bucket, value, succ_key)
+
+
+# ---------------------------------------------------------------------------
+# launch 2: the dense RANGE gather
+# ---------------------------------------------------------------------------
+
+
+def flix_apply_range_pass(g, pref, node_count, keys, vals):
+    """Dense RANGE output: slot p holds the key of global post-update rank
+    ``g[p]`` (EMPTY / NOT_FOUND where ``g[p] < 0``).  The CUDA kernel on the
+    card, :func:`flix_apply_range_reference` on the CPU."""
+    nb, npb, ns = keys.shape
+    dev = keys.device
+    args = (g, pref, node_count, keys, vals)
+    _check(dev, ("g", "pref", "node_count", "keys", "vals"), args)
+    if pref.shape != (nb + 1,) or node_count.shape != (nb, npb):
+        raise ValueError("range gather: pref or node_count disagrees with keys")
+    if vals.shape != keys.shape:
+        raise ValueError("range gather: vals disagree with keys")
+    if dev.type == "cpu":
+        return flix_apply_range_reference(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"flix_apply runs on CUDA or the CPU, not {dev}")
+
+    lib = load_library()
+    mr = g.shape[0]
+    with torch.cuda.device(dev):
+        rk = torch.empty((mr,), dtype=torch.int32, device=dev)
+        rv = torch.empty((mr,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [_ptr(t) for t in args + (rk, rv)]
+        err = lib.flix_range_gather_launch(
+            *ptrs, mr, nb, npb, ns, ctypes.c_void_p(stream)
+        )
+    if err != 0:
+        raise RuntimeError(f"flix_apply range gather failed with CUDA error {err}")
+    LAUNCHES["flix_apply_range"] += 1
+    return rk, rv
+
+
+def flix_apply_range_reference(g, pref, node_count, keys, vals):
+    """Plain torch version of the RANGE gather (same inputs and outputs)."""
+    nb, npb, ns = keys.shape
+    valid = g >= 0
+    gc = torch.where(valid, g, 0)
+    b = torch.searchsorted(pref, gc, right=True, out_int32=True) - 1
+    b = torch.clamp(b, 0, nb - 1)
+    r = gc - pref[b]
+    cnt = node_count[b]  # [MR, npb]
+    incl = torch.cumsum(cnt, 1, dtype=torch.int32)
+    node = torch.clamp((incl <= r[:, None]).sum(1), max=npb - 1)[:, None]
+    before = (incl.gather(1, node) - cnt.gather(1, node))[:, 0]
+    pos = torch.clamp(r - before, 0, ns - 1)
+    node = node[:, 0]
+    rk = torch.where(valid, keys[b, node, pos], EMPTY)
+    rv = torch.where(valid, vals[b, node, pos], NOT_FOUND)
+    return rk, rv
+
+
+# ---------------------------------------------------------------------------
+# the host side
+# ---------------------------------------------------------------------------
+
+
+def _post_rank(state: FliXState, pref: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Global rank (stored keys < q) per query in a state that holds I1–I4:
+    the owning bucket's rank fence, plus the keys of its nodes wholly below
+    q, plus q's position in the first node that reaches it."""
+    npb = state.nodes_per_bucket
+    b = _bucket_index(state, q)
+    below = state.node_max[b] < q[:, None]
+    before = (state.node_count[b] * below).sum(1, dtype=torch.int32)
+    nidx = below.sum(1, dtype=torch.int32)
+    row = state.keys[b, torch.clamp(nidx, max=npb - 1)]
+    pos = (row < q[:, None]).sum(1, dtype=torch.int32)
+    pos = torch.where(nidx < state.num_nodes[b], pos, 0)
+    return pref[b] + before + pos
+
+
+def range_slots(
+    state: FliXState,
+    is_range: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    max_results: int,
+):
+    """The RANGE plumbing against a post-update state: its live-count
+    prefix ``pref`` [nb+1], each op's ``[lo, hi)`` ranks, the shared budget
+    split, and the global rank of every output slot.  Returns ``(g, pref,
+    start, emit, truncated)`` — the range gather's inputs and the per-op
+    segments."""
+    live = state.node_count.sum(1, dtype=torch.int32)
+    pref = torch.cat([live.new_zeros((1,)), torch.cumsum(live, 0, dtype=torch.int32)])
+    rank_lo = _post_rank(state, pref, lo)
+    rank_hi = _post_rank(state, pref, hi)
+    full = torch.clamp(rank_hi - rank_lo, min=0)
+    start, emit, total_emit, truncated = range_offsets(full, is_range, max_results)
+    g = range_slot_ranks(rank_lo, start, total_emit, max_results)
+    return g, pref, start, emit, truncated
+
+
+def flix_apply(
+    state: FliXState,
+    tag: torch.Tensor,
+    key: torch.Tensor,
+    val: torch.Tensor,
+    *,
+    max_results: int = DEFAULT_MAX_RESULTS,
+):
+    """Fused mixed-batch apply.  Same contract as ``core.ops.apply_ops``.
+
+    The TPU kernel's tiling knobs (``ExecConfig.block_q``, ``block_b``,
+    ``tile_table``) have no counterpart: the launch runs one thread block
+    per bucket and reads none of them.
+    """
+    cap = state.bucket_capacity
+    n = key.shape[0]
+    dev = state.device
+
+    args, r = stripe_inputs(state, tag, key, val)
+    outs = flix_apply_pass(*args)
+    okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = outs
+    true_counts = r.ins_ends - r.ins_starts
+    slice_overflow = true_counts > cap
+    any_overflow = (oflow > 0).any() | slice_overflow.any()
+    new_state = FliXState(
+        keys=okeys,
+        vals=ovals,
+        node_count=ocnt,
+        node_max=omax,
+        num_nodes=onn,
+        mkba=state.mkba,
+        needs_restructure=state.needs_restructure | any_overflow,
+    )
+
+    # SUCCESSOR past its bucket's largest post-update key: the first key of
+    # the next non-empty bucket, from the post-update fence rows
+    smin_pad, sidx_pad = _successor_fence_rows(new_state)
+    b1 = _bucket_index(state, key) + 1
+    out_key = smin_pad[b1]
+    out_val = ovals[sidx_pad[b1], 0, 0]
+    fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
+    succ_key = torch.where(fallback, out_key, succ_key)
+    value = torch.where(fallback & (out_key != EMPTY), out_val, value)
+
+    # RANGE: post-update rank fences and per-slot ranks, then the gather
+    is_range = tag == OP_RANGE
+    if bool(is_range.any()):
+        g, pref, rstart, remit, rtrunc = range_slots(
+            new_state, is_range, key, val, max_results
+        )
+        rk, rv = flix_apply_range_pass(g, pref, ocnt, okeys, ovals)
+        range_start = torch.where(is_range, rstart, 0)
+        range_count = torch.where(is_range, remit, 0)
+    else:
+        rk = torch.full((max_results,), EMPTY, dtype=torch.int32, device=dev)
+        rv = torch.full((max_results,), NOT_FOUND, dtype=torch.int32, device=dev)
+        range_start = torch.zeros((n,), dtype=torch.int32, device=dev)
+        range_count = torch.zeros_like(range_start)
+        rtrunc = torch.zeros((), dtype=torch.int32, device=dev)
+
+    results = {
+        "value": value,
+        "succ_key": succ_key,
+        "range_key": rk,
+        "range_val": rv,
+        "range_start": range_start,
+        "range_count": range_count,
+    }
+    stats = {
+        "inserted": torch.clamp(true_counts, max=cap).sum(dtype=torch.int32),
+        "deleted": odel.sum(dtype=torch.int32),
+        "overflowed_buckets": ((oflow > 0) | slice_overflow).sum(dtype=torch.int32),
+        "range_truncated": rtrunc,
+    }
+    return new_state, results, stats
