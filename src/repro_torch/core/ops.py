@@ -266,7 +266,7 @@ def _apply_ops_plain(state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConf
     if cfg.pipeline == "on":
         raise NotImplementedError(
             "pipeline='on': the double-buffered (cp.async/TMA-staged) flix_apply "
-            "is not ported yet (ROADMAP Queue 2 item 1)"
+            "is not ported yet (ROADMAP Queue 2 item 2)"
         )
     from repro_torch.kernels.flix_apply import flix_apply
 

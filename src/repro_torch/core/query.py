@@ -70,14 +70,15 @@ def _suffix_min_with_index(g: torch.Tensor):
     return rv.flip(0), ri.flip(0)
 
 
-def _successor_fence_rows(state: FliXState):
-    """Padded suffix-min rows over per-bucket minimum present keys.
+def _successor_fence_rows(keys: torch.Tensor, num_nodes: torch.Tensor):
+    """Padded suffix-min rows over per-bucket minimum present keys, from the
+    key plane [nb, npb, ns] and the per-bucket active-node counts.
 
     ``smin_pad[b+1]`` is the smallest key stored in any bucket after ``b``
     (EMPTY if none) and ``sidx_pad[b+1]`` the bucket attaining it — the
     successor fallback for queries past their bucket's largest present key.
     """
-    bucket_min = torch.where(state.num_nodes > 0, state.keys[:, 0, 0], EMPTY)
+    bucket_min = torch.where(num_nodes > 0, keys[:, 0, 0], EMPTY)
     smin, sidx = _suffix_min_with_index(bucket_min)
     smin_pad = torch.cat([smin, smin.new_full((1,), EMPTY)])
     sidx_pad = torch.cat([sidx, sidx.new_zeros((1,))])
@@ -95,7 +96,7 @@ def successor_query(state: FliXState, sorted_queries: torch.Tensor):
     b, nidx_c, pos_c, in_key, in_bucket, pos = _locate(state, q)
     in_val = state.vals[b, nidx_c, pos_c]
 
-    smin_pad, sidx_pad = _successor_fence_rows(state)
+    smin_pad, sidx_pad = _successor_fence_rows(state.keys, state.num_nodes)
     out_key = smin_pad[b + 1]
     out_val = state.vals[sidx_pad[b + 1], 0, 0]
 

@@ -1,13 +1,24 @@
-// Per-bucket phases of the FliX update-then-read pass, as device functions.
+// Per-bucket phases of FliX, as device functions shared by every kernel.
 //
-// One thread block owns one bucket stripe in shared memory.  The phases are
-// the formulas of the JAX reference (repro/kernels/flix_apply.py
-// _stripe_body, repro/core/insert.py _merge_one_bucket, repro/core/delete.py)
-// with the TPU's O(S^2) compare-count masks replaced by block scans and
-// binary searches, which give the same ranks because every sequence searched
-// here is ascending.  The standalone insert / delete / query / successor
-// kernels of later ports reuse these functions.
+// Two kinds of worker:
+//   * a thread block owns one bucket stripe in shared memory (flix_apply,
+//     flix_insert, flix_delete).  The phases are the formulas of the JAX
+//     reference (repro/kernels/flix_apply.py _stripe_body,
+//     repro/kernels/flix_insert.py _insert_kernel, repro/kernels/flix_delete.py
+//     _delete_kernel, repro/core/insert.py _merge_one_bucket) with the TPU's
+//     O(S^2) compare-count masks replaced by block scans and binary searches,
+//     which give the same ranks because every sequence searched here is
+//     ascending;
+//   * a warp owns one bucket and answers its slice of a sorted query batch
+//     (flix_query, flix_successor): node and in-node position are popcounts
+//     of warp ballots, the paper's tile vote.
+//
+// Every worker finds its own slice of a sorted batch by binary search of the
+// bucket's fences (bucket_slice): the flipped routing of the paper, done by
+// the bucket itself.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace flix {
 
@@ -15,6 +26,7 @@ constexpr int kEmpty = 0x7fffffff;  // empty slot / inactive node sentinel
 constexpr int kMiss = -1;           // NOT_FOUND
 constexpr int kOpPoint = 2;
 constexpr int kOpSuccessor = 3;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Number of entries of ascending a[0, n) strictly below x.
 __device__ __forceinline__ int lower_bound(const int* a, int n, int x) {
@@ -36,6 +48,80 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int x) {
   return lo;
 }
 
+// ---------------------------------------------------------------------------
+// the flipped routing
+// ---------------------------------------------------------------------------
+
+// Bucket b's slice [start, end) of the ascending batch a[0, n): the entries
+// in (mkba[b-1], mkba[b]] (bucket 0 has no lower fence).  Equal to
+// repro/core/batch.py bucket_slices.
+__device__ __forceinline__ int2 bucket_slice(const int* mkba, int b, const int* a, int n) {
+  const int start = b == 0 ? 0 : upper_bound(a, n, mkba[b - 1]);
+  const int end = upper_bound(a, n, mkba[b]);
+  return make_int2(start, max(end, start));
+}
+
+// bucket_slice computed by two lanes of a warp at once and broadcast to all
+// 32 lanes.  Every lane of the warp must call it.
+__device__ __forceinline__ int2 warp_bucket_slice(const int* mkba, int b, const int* a,
+                                                  int n, int lane) {
+  int x = 0;
+  if (lane == 0) x = b == 0 ? 0 : upper_bound(a, n, mkba[b - 1]);
+  if (lane == 1) x = upper_bound(a, n, mkba[b]);
+  const int start = __shfl_sync(kFull, x, 0);
+  const int end = __shfl_sync(kFull, x, 1);
+  return make_int2(start, max(end, start));
+}
+
+// ---------------------------------------------------------------------------
+// locate by ballot (one warp, any row width)
+// ---------------------------------------------------------------------------
+
+// Number of entries of row[0, n) below q: lane l votes for row[c + l] in
+// each 32-wide chunk c, and lanes past n vote false.  Every lane of the
+// warp must call it; all get the count.
+__device__ __forceinline__ int warp_count_below(const int* row, int n, int q, int lane) {
+  int c = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    c += __popc(__ballot_sync(kFull, j < n && row[j] < q));
+  }
+  return c;
+}
+
+// Number of entries of row[0, n) that are not EMPTY (active node slots of a
+// node_max row), by the same ballots.
+__device__ __forceinline__ int warp_count_active(const int* row, int n, int lane) {
+  int c = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    c += __popc(__ballot_sync(kFull, j < n && row[j] != kEmpty));
+  }
+  return c;
+}
+
+// Where query q sits in a bucket, located by a warp: nidx = nodes whose max
+// is below q (the node is nidx clamped to the last slot), raw_pos = keys of
+// that node below q (pos is raw_pos clamped to the last lane).  Formulas of
+// repro/kernels/ref.py flix_point_query_ref.
+struct WarpLocated {
+  int nidx, node, raw_pos, pos;
+};
+
+__device__ __forceinline__ WarpLocated warp_locate(const int* keys_b, const int* nmax_b,
+                                                   int npb, int ns, int q, int lane) {
+  WarpLocated l;
+  l.nidx = warp_count_below(nmax_b, npb, q, lane);
+  l.node = min(l.nidx, npb - 1);
+  l.raw_pos = warp_count_below(keys_b + (size_t)l.node * ns, ns, q, lane);
+  l.pos = min(l.raw_pos, ns - 1);
+  return l;
+}
+
+// ---------------------------------------------------------------------------
+// block-wide pieces of the stripe passes
+// ---------------------------------------------------------------------------
+
 // In-place exclusive scan of x[0, n) by the whole block; x[n] receives the
 // total.  blockDim.x must be a multiple of 32; warp_buf holds 32 ints.
 // Each thread scans one contiguous chunk, so any n works with any block.
@@ -48,7 +134,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
   const int lane = t & 31, warp = t >> 5;
   int v = local;
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, d);
+    const int y = __shfl_up_sync(kFull, v, d);
     if (lane >= d) v += y;
   }
   if (lane == 31) warp_buf[warp] = v;
@@ -57,7 +143,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
     const int nw = T >> 5;
     int w = lane < nw ? warp_buf[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      const int y = __shfl_up_sync(kFull, w, d);
       if (lane >= d) w += y;
     }
     if (lane < nw) warp_buf[lane] = w;
@@ -93,9 +179,291 @@ __device__ __forceinline__ int chunk_dest(int rank, int r, const int* m_j, const
   return slot < npb ? slot * ns + (rr - start) : npb * ns;
 }
 
-// Where key q sits in a post-update stripe: node = first node whose max is
-// >= q, pos = its in-node position.  in_bucket is false when q is above
-// every stored key of the bucket.
+// Shared-memory layout of one bucket's stripe pass.  A merge pass (apply,
+// insert) uses every buffer; a delete pass only A, Av, M, Mv, X, Slot, Cnt,
+// Warp and Scalar.
+struct Stripe {
+  int* A;       // [S] stripe keys (chain order); apply: later the result
+  int* Av;      // [S]
+  int* B;       // [S] the bucket's insert slice (sorted), at most cap = S
+  int* Bv;      // [S]
+  int* K;       // [S] kept stripe keys, compacted (sorted)
+  int* M;       // [S] merged stripe; delete: the result
+  int* Mv;      // [S]
+  int* X;       // [S+1] scan buffer
+  int* Nmax;    // [npb] input node max; apply: later the output's
+  int* Mj;      // [npb] keys per original region
+  int* Sj;      // [npb] pieces per region
+  int* Fj;      // [npb] first merged rank of region
+  int* Base;    // [npb] first output slot of region
+  int* Slot;    // [npb] node's slot after chain compaction
+  int* Cnt;     // [npb] output node counts
+  int* Warp;    // [32]
+  int* Scalar;  // [8] onn0, total pieces, deleted, output num_nodes; 4-7 free
+};
+
+__host__ __device__ inline int merge_smem_ints(int npb, int ns) {
+  const int S = npb * ns;
+  return 2 * S + 2 * S + S + 2 * S + (S + 1) + 7 * npb + 32 + 8;
+}
+
+__host__ __device__ inline int delete_smem_ints(int npb, int ns) {
+  const int S = npb * ns;
+  return 2 * S + 2 * S + (S + 1) + 2 * npb + 32 + 8;
+}
+
+__device__ inline Stripe carve_merge(int* smem, int npb, int ns) {
+  const int S = npb * ns;
+  Stripe s;
+  s.A = smem;
+  s.Av = s.A + S;
+  s.B = s.Av + S;
+  s.Bv = s.B + S;
+  s.K = s.Bv + S;
+  s.M = s.K + S;
+  s.Mv = s.M + S;
+  s.X = s.Mv + S;
+  s.Nmax = s.X + S + 1;
+  s.Mj = s.Nmax + npb;
+  s.Sj = s.Mj + npb;
+  s.Fj = s.Sj + npb;
+  s.Base = s.Fj + npb;
+  s.Slot = s.Base + npb;
+  s.Cnt = s.Slot + npb;
+  s.Warp = s.Cnt + npb;
+  s.Scalar = s.Warp + 32;
+  return s;
+}
+
+__device__ inline Stripe carve_delete(int* smem, int npb, int ns) {
+  const int S = npb * ns;
+  Stripe s = {};
+  s.A = smem;
+  s.Av = s.A + S;
+  s.M = s.Av + S;
+  s.Mv = s.M + S;
+  s.X = s.Mv + S;
+  s.Slot = s.X + S + 1;
+  s.Cnt = s.Slot + npb;
+  s.Warp = s.Cnt + npb;
+  s.Scalar = s.Warp + 32;
+  return s;
+}
+
+// Threads per stripe block: one per slot up to 256.
+inline int stripe_threads(int S) {
+  const int t = ((S + 31) / 32) * 32;
+  return t < 256 ? t : 256;
+}
+
+// Load bucket b's stripe into A/Av and clear the merged stripe M/Mv.  With
+// node_max given, also load Nmax, clear Mj and count the active nodes into
+// Scalar[0].  Ends with a barrier.
+__device__ inline void load_stripe(const Stripe& s, const int* __restrict__ keys,
+                                   const int* __restrict__ vals,
+                                   const int* __restrict__ node_max, int b, int npb,
+                                   int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const size_t base = (size_t)b * S;
+  if (t < 4) s.Scalar[t] = 0;  // Scalar[4..7] are the caller's
+  __syncthreads();
+  for (int i = t; i < S; i += T) {
+    s.A[i] = keys[base + i];
+    s.Av[i] = vals[base + i];
+    s.M[i] = kEmpty;
+    s.Mv[i] = 0;
+  }
+  if (node_max != nullptr) {
+    const size_t mbase = (size_t)b * npb;
+    for (int j = t; j < npb; j += T) {
+      const int x = node_max[mbase + j];
+      s.Nmax[j] = x;
+      s.Mj[j] = 0;
+      if (x != kEmpty) atomicAdd(&s.Scalar[0], 1);
+    }
+  }
+  __syncthreads();
+}
+
+// Load the first m entries of an insert slice into B/Bv.  Ends with a
+// barrier.
+__device__ inline void load_insert_slice(const Stripe& s, const int* __restrict__ ik,
+                                         const int* __restrict__ iv, int m) {
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    s.B[j] = ik[j];
+    s.Bv[j] = iv[j];
+  }
+  __syncthreads();
+}
+
+// Upsert merge of the insert slice B[0, m) into the stripe A: stripe keys
+// that reappear in B are dropped (the incoming value wins), each original
+// node region is re-chunked into balanced pieces, and the result lands in
+// M/Mv (EMPTY / 0 elsewhere).  Scalar[1] receives the number of pieces:
+// more than npb means the bucket overflowed and the pieces past the last
+// slot were dropped.  Ends with a barrier.
+__device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+
+  // stripe keys not upserted, ranked by a block scan
+  for (int i = t; i < S; i += T) {
+    const int a = s.A[i];
+    int keep = 0;
+    if (a != kEmpty) {
+      const int p = lower_bound(s.B, m, a);
+      keep = !(p < m && s.B[p] == a);  // the incoming value wins
+    }
+    s.X[i] = keep;
+  }
+  __syncthreads();
+  block_exclusive_scan(s.X, S, s.Warp);  // X[i] = kept keys before slot i
+  const int nK = s.X[S];
+  const int onn_c = max(s.Scalar[0] - 1, 0);
+
+  for (int i = t; i < S; i += T) {
+    if (s.X[i + 1] != s.X[i]) {
+      const int a = s.A[i];
+      s.K[s.X[i]] = a;
+      atomicAdd(&s.Mj[region_of(s.Nmax, npb, onn_c, a)], 1);
+    }
+  }
+  for (int j = t; j < m; j += T) atomicAdd(&s.Mj[region_of(s.Nmax, npb, onn_c, s.B[j])], 1);
+  __syncthreads();
+
+  if (t == 0) {
+    int f = 0, slot = 0;
+    for (int j = 0; j < npb; ++j) {
+      const int mj = s.Mj[j];
+      const int sj = (mj + ns - 1) / ns;
+      s.Sj[j] = sj;
+      s.Fj[j] = f;
+      s.Base[j] = slot;
+      f += mj;
+      slot += sj;
+    }
+    s.Scalar[1] = slot;
+  }
+  __syncthreads();
+
+  for (int i = t; i < S; i += T) {
+    if (s.X[i + 1] != s.X[i]) {
+      const int a = s.A[i];
+      const int rank = s.X[i] + lower_bound(s.B, m, a);
+      const int d = chunk_dest(rank, region_of(s.Nmax, npb, onn_c, a), s.Mj, s.Sj, s.Fj,
+                               s.Base, npb, ns);
+      if (d < S) {
+        s.M[d] = a;
+        s.Mv[d] = s.Av[i];
+      }
+    }
+  }
+  for (int j = t; j < m; j += T) {
+    const int k = s.B[j];
+    const int rank = lower_bound(s.K, nK, k) + j;
+    const int d = chunk_dest(rank, region_of(s.Nmax, npb, onn_c, k), s.Mj, s.Sj, s.Fj,
+                             s.Base, npb, ns);
+    if (d < S) {
+      s.M[d] = k;
+      s.Mv[d] = s.Bv[j];
+    }
+  }
+  __syncthreads();
+}
+
+// Mark the stored keys of src[0, S) that the delete slice dk[0, dn)
+// (ascending) holds: X[i] = 1 for a survivor, 0 for a hit or an EMPTY
+// slot; Scalar[2] counts the hits.  Ends with a barrier.
+__device__ inline void mark_deletes(const Stripe& s, const int* src, const int* dk, int dn,
+                                    int S) {
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    const int k = src[i];
+    int keep = 0;
+    if (k != kEmpty) {
+      const int p = lower_bound(dk, dn, k);
+      const bool hit = p < dn && dk[p] == k;
+      if (hit) atomicAdd(&s.Scalar[2], 1);
+      keep = !hit;
+    }
+    s.X[i] = keep;
+  }
+  __syncthreads();
+}
+
+// In-node and chain compaction of src/srcv by the survivor flags in X:
+// survivors shift left inside their node, emptied nodes drop out of the
+// chain, and the result lands in dst/dstv (EMPTY / 0 elsewhere).  Cnt
+// receives the output node counts and Scalar[3] the output num_nodes.
+// Ends with a barrier.
+__device__ inline void compact_phase(const Stripe& s, const int* src, const int* srcv,
+                                     int* dst, int* dstv, int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  block_exclusive_scan(s.X, S, s.Warp);  // survivors before each slot
+  if (t == 0) {
+    int slot = 0;
+    for (int j = 0; j < npb; ++j) {
+      const int c = s.X[(j + 1) * ns] - s.X[j * ns];
+      s.Slot[j] = slot;
+      if (c > 0) s.Cnt[slot++] = c;  // non-empty nodes keep chain order
+    }
+    for (int j = slot; j < npb; ++j) s.Cnt[j] = 0;
+    s.Scalar[3] = slot;
+  }
+  for (int i = t; i < S; i += T) {
+    dst[i] = kEmpty;
+    dstv[i] = 0;
+  }
+  __syncthreads();
+  for (int i = t; i < S; i += T) {
+    if (s.X[i + 1] != s.X[i]) {
+      const int j = i / ns;
+      const int d = s.Slot[j] * ns + (s.X[i] - s.X[j * ns]);
+      dst[d] = src[i];
+      dstv[d] = srcv[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Node counts of a stripe whose rows are already packed (Cnt[j] = keys of
+// row j that are not EMPTY), and the number of non-empty rows in
+// Scalar[3].  Ends with a barrier.
+__device__ inline void count_rows(const Stripe& s, const int* src, int npb, int ns) {
+  for (int j = threadIdx.x; j < npb; j += blockDim.x) {
+    int c = 0;
+    for (int i = 0; i < ns; ++i) c += src[j * ns + i] != kEmpty;
+    s.Cnt[j] = c;
+    if (c > 0) atomicAdd(&s.Scalar[3], 1);
+  }
+  __syncthreads();
+}
+
+// Write a finished stripe src/srcv of bucket b and its metadata: node_count
+// from Cnt, node_max = the last key of each non-empty node (also kept in
+// Nmax when it is given), num_nodes from Scalar[3].  Ends with a barrier.
+__device__ inline void write_stripe(const Stripe& s, const int* src, const int* srcv,
+                                    int* __restrict__ keys_out, int* __restrict__ vals_out,
+                                    int* __restrict__ count_out, int* __restrict__ max_out,
+                                    int* __restrict__ nn_out, int b, int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const size_t base = (size_t)b * S, mbase = (size_t)b * npb;
+  for (int j = t; j < npb; j += T) {
+    const int c = s.Cnt[j];
+    const int mx = c > 0 ? src[j * ns + c - 1] : kEmpty;
+    if (s.Nmax != nullptr) s.Nmax[j] = mx;
+    count_out[mbase + j] = c;
+    max_out[mbase + j] = mx;
+  }
+  for (int i = t; i < S; i += T) {
+    keys_out[base + i] = src[i];
+    vals_out[base + i] = srcv[i];
+  }
+  if (t == 0) nn_out[b] = s.Scalar[3];
+  __syncthreads();
+}
+
+// Where key q sits in a post-update stripe held by one thread: node = first
+// node whose max is >= q, pos = its in-node position.  in_bucket is false
+// when q is above every stored key of the bucket.
 struct Located {
   int node, pos, raw_pos;
   bool in_bucket;

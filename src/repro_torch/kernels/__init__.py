@@ -1,7 +1,25 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), with their plain versions.
 
-flix_apply  — fused mixed-batch apply: merge + delete + post-update reads in
-              one thread block per bucket, plus the dense RANGE gather
-              (``csrc/flix_apply.cu``)
-_build      — nvcc build of ``csrc/`` into a ctypes-loaded library
+ops             — the kernel entry points on a state, with the reference's
+                  signatures: ``mode="auto"`` runs the kernel (its plain
+                  version on a CPU state), ``mode="ref"`` the core function
+flix_apply      — fused mixed-batch apply: merge + delete + post-update reads
+                  in one thread block per bucket, plus the dense RANGE gather
+                  (``csrc/flix_apply.cu``)
+flix_query      — flipped point queries, one warp per bucket
+                  (``csrc/flix_query.cu``)
+flix_successor  — flipped successor queries with the suffix-min fence rows
+                  (``csrc/flix_successor.cu``)
+flix_insert     — TL-Bulk insertion, one thread block per bucket
+                  (``csrc/flix_insert.cu``)
+flix_delete     — TL-Bulk deletion, one thread block per bucket
+                  (``csrc/flix_delete.cu``)
+_phases         — plain torch versions of the stripe phases of
+                  ``csrc/flix_phases.cuh``
+_launch         — input checks, the launch call and the ``LAUNCHES`` counts
+_build          — nvcc build of ``csrc/`` into a ctypes-loaded library
 """
+
+from repro_torch.kernels._launch import LAUNCHES, reset_launches
+
+__all__ = ["LAUNCHES", "reset_launches"]

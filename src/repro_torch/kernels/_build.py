@@ -1,6 +1,7 @@
 """Build and load the port's CUDA library.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all started together, and links the objects into one shared library
 with a plain C interface, which ``ctypes`` loads.  The build runs at first
 use, from the package's own sources only, into ``_build/`` beside them (git
 ignores it).  The library's name carries a hash of the sources, so an edit
@@ -25,7 +26,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -41,6 +41,12 @@ SIGNATURES = {
     "flix_smem_optin_bytes": ([], _I),
     "flix_apply_launch": ([_P] * 23 + [_I, _I, _I, _P], _I),
     "flix_range_gather_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
+    "flix_query_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "flix_successor_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "flix_insert_smem_bytes": ([_I, _I], _I),
+    "flix_insert_launch": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    "flix_delete_smem_bytes": ([_I, _I], _I),
+    "flix_delete_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -70,6 +76,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libflix_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; return their outputs, or raise with the
+    output of the first that fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet.  Returns its path and
     nvcc's output (empty when it was already built)."""
@@ -78,16 +98,20 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(f) for f in sources() if f.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    cus = [f for f in sources() if f.suffix == ".cu"]
+    objs = [str(obj_dir / f"{f.stem}.o") for f in cus]
+    try:
+        logs = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)] for f, o in zip(cus, objs)]
         )
+        logs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:

@@ -28,12 +28,12 @@ compacted batch, so no present-key filter is needed to bound them either.
 Every launch wrapper checks its tensors, runs the kernel's plain torch
 version when they lie on the CPU (that is how the CPU tests run), launches
 the kernel on the current stream when they lie on the card, checks the
-launch's error code, and counts the launch in :data:`LAUNCHES`.
+launch's error code, and counts the launch in :data:`LAUNCHES`
+(``kernels/_launch.py``).  The plain stripe pass is built from the phases of
+``kernels/_phases.py``, which ``flix_insert`` and ``flix_delete`` share.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -47,17 +47,8 @@ from repro_torch.core.query import (
     range_slot_ranks,
 )
 from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
-from repro_torch.kernels._build import load_library
-
-# launches per kernel since the last reset; a run reads these to show that
-# its main path went through the kernels
-LAUNCHES = {"flix_apply": 0, "flix_apply_range": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
+from repro_torch.kernels._launch import check, check_smem, launch
+from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
 
 # the stripe pass's inputs, in the order of the C entry point
 _PASS_INPUTS = (
@@ -76,21 +67,6 @@ _PASS_INPUTS = (
     "op_starts",
     "op_ends",
 )
-
-
-def _check(device: torch.device, names, tensors) -> None:
-    """Every tensor: int32, contiguous, on ``device``."""
-    for name, t in zip(names, tensors):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
-        if t.device != device:
-            raise ValueError(f"{name}: on {t.device}, expected {device}")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +143,7 @@ def flix_apply_pass(
         op_starts,
         op_ends,
     )
-    _check(dev, _PASS_INPUTS, args)
+    check(dev, _PASS_INPUTS, args)
     if vals.shape != keys.shape or node_max.shape != (nb, npb):
         raise ValueError("keys, vals and node_max disagree in geometry")
     bounds = (ins_starts, ins_ends, del_starts, del_ends, op_starts, op_ends)
@@ -177,120 +153,30 @@ def flix_apply_pass(
         raise ValueError("batch columns disagree in length")
     if dev.type == "cpu":
         return flix_apply_reference(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"flix_apply runs on CUDA or the CPU, not {dev}")
 
-    lib = load_library()
-    with torch.cuda.device(dev):
-        need = lib.flix_apply_smem_bytes(npb, ns)
-        limit = lib.flix_smem_optin_bytes()
-        if need > limit:
-            raise ValueError(
-                f"geometry (npb={npb}, ns={ns}) needs {need} bytes of shared "
-                f"memory per block; this card allows {limit}"
-            )
-        outs = (
-            torch.empty_like(keys),
-            torch.empty_like(vals),
-            torch.empty_like(node_max),
-            torch.empty_like(node_max),
-            torch.empty((nb,), dtype=torch.int32, device=dev),
-            torch.empty((nb,), dtype=torch.int32, device=dev),
-            torch.empty((nb,), dtype=torch.int32, device=dev),
-            torch.full((n,), NOT_FOUND, dtype=torch.int32, device=dev),
-            torch.full((n,), EMPTY, dtype=torch.int32, device=dev),
-        )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flix_apply_launch(
-            *(_ptr(t) for t in args + outs), nb, npb, ns, ctypes.c_void_p(stream)
-        )
-    if err != 0:
-        raise RuntimeError(f"flix_apply launch failed with CUDA error {err}")
-    LAUNCHES["flix_apply"] += 1
+    check_smem("flix_apply", "flix_apply_smem_bytes", npb, ns, dev)
+    outs = (
+        torch.empty_like(keys),
+        torch.empty_like(vals),
+        torch.empty_like(node_max),
+        torch.empty_like(node_max),
+        torch.empty((nb,), dtype=torch.int32, device=dev),
+        torch.empty((nb,), dtype=torch.int32, device=dev),
+        torch.empty((nb,), dtype=torch.int32, device=dev),
+        torch.full((n,), NOT_FOUND, dtype=torch.int32, device=dev),
+        torch.full((n,), EMPTY, dtype=torch.int32, device=dev),
+    )
+    launch("flix_apply", "flix_apply_launch", dev, *args, *outs, nb, npb, ns)
     return outs
-
-
-def _dest(rank, r, m_j, s_j, f_j, base_j, keep, npb, ns, dump):
-    """The balanced re-chunk slot of each merged element (``chunk_dest``)."""
-    m_r = torch.clamp(m_j.gather(1, r), min=1)
-    s_r = torch.clamp(s_j.gather(1, r), min=1)
-    rr = rank - f_j.gather(1, r)
-    piece = (rr * s_r) // m_r
-    start = (piece * m_r + s_r - 1) // s_r
-    slot = base_j.gather(1, r) + piece
-    return torch.where(keep & (slot < npb), slot * ns + (rr - start), dump).long()
 
 
 def _stripe_chunk(A, Av, nmax, B, Bv, del_keys, ds, de, npb, ns):
     """The plain stripe pass of one chunk of buckets (``flix_apply_kernel``'s
     phases, batched over the leading bucket dimension)."""
-    C, S = A.shape
-    dev = A.device
-    cap = S
-    lane = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
-
-    # merge: stripe keys not upserted, ranked by a scan
-    validA = A != EMPTY
-    lbB = torch.searchsorted(B, A)
-    dup = validA & (B.gather(1, torch.clamp(lbB, max=cap - 1)) == A)
-    keepA = validA & ~dup
-    incl = torch.cumsum(keepA, 1, dtype=torch.int32)
-    exA = incl - keepA.to(torch.int32)
-    kept_at = torch.where(keepA, exA, S).long()
-    K = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
-    K.scatter_(1, kept_at, A)
-    K = K[:, :S].contiguous()
-
-    validB = B != EMPTY
-    onn_c = torch.clamp((nmax != EMPTY).sum(1) - 1, min=0)[:, None]
-    regA = torch.minimum(torch.searchsorted(nmax, A), onn_c)
-    regB = torch.minimum(torch.searchsorted(nmax, B), onn_c)
-    m_j = torch.zeros((C, npb), dtype=torch.int32, device=dev)
-    m_j.scatter_add_(1, regA, keepA.to(torch.int32))
-    m_j.scatter_add_(1, regB, validB.to(torch.int32))
-    s_j = (m_j + ns - 1) // ns
-    f_j = torch.cumsum(m_j, 1, dtype=torch.int32) - m_j
-    base_j = torch.cumsum(s_j, 1, dtype=torch.int32) - s_j
-
-    rankA = exA + lbB.to(torch.int32)
-    rankB = torch.searchsorted(K, B, out_int32=True) + lane
-    destA = _dest(rankA, regA, m_j, s_j, f_j, base_j, keepA, npb, ns, S)
-    destB = _dest(rankB, regB, m_j, s_j, f_j, base_j, validB, npb, ns, S)
-    M = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
-    Mv = torch.zeros((C, S + 1), dtype=torch.int32, device=dev)
-    M.scatter_(1, destA, A)
-    M.scatter_(1, destB, B)
-    Mv.scatter_(1, destA, Av)
-    Mv.scatter_(1, destB, Bv)
-    M, Mv = M[:, :S], Mv[:, :S]
-
-    # delete: a hit is a stored key found in the bucket's delete slice
-    hit = torch.zeros_like(M, dtype=torch.bool)
-    if del_keys.shape[0] > 0:
-        p = torch.searchsorted(del_keys, M.reshape(-1), out_int32=True)
-        p = p.reshape(C, S)
-        found = del_keys[torch.clamp(p, max=del_keys.shape[0] - 1)] == M
-        hit = (p >= ds[:, None]) & (p < de[:, None]) & found & (M != EMPTY)
-    keep = (M != EMPTY) & ~hit
-    ex = torch.cumsum(keep, 1, dtype=torch.int32) - keep.to(torch.int32)
-    node_of = lane // ns
-    in_node = ex - ex[:, ::ns].gather(1, node_of.expand(C, -1).long())
-    cnt = keep.reshape(C, npb, ns).sum(2, dtype=torch.int32)
-    nonempty = cnt > 0
-    slot = torch.cumsum(nonempty, 1, dtype=torch.int32) - 1
-    dest = slot.gather(1, node_of.expand(C, -1).long()) * ns + in_node
-    dest = torch.where(keep, dest, S).long()
-    F = torch.full((C, S + 1), EMPTY, dtype=torch.int32, device=dev)
-    Fv = torch.zeros((C, S + 1), dtype=torch.int32, device=dev)
-    F.scatter_(1, dest, M)
-    Fv.scatter_(1, dest, Mv)
-    F, Fv = F[:, :S].reshape(C, npb, ns), Fv[:, :S].reshape(C, npb, ns)
-
-    ocnt = (F != EMPTY).sum(2, dtype=torch.int32)
-    last = torch.clamp(ocnt - 1, min=0).long()[..., None]
-    omax = torch.where(ocnt > 0, F.gather(2, last)[..., 0], EMPTY)
-    onn = (ocnt > 0).sum(1, dtype=torch.int32)
-    overflow = (s_j.sum(1) > npb).to(torch.int32)
+    M, Mv, pieces = merge_chunk(A, Av, nmax, B, Bv, npb, ns)
+    hit = slice_hits(del_keys, M, ds, de)
+    F, Fv, ocnt, omax, onn = compact_chunk(M, Mv, hit, npb, ns)
+    overflow = (pieces > npb).to(torch.int32)
     return F, Fv, ocnt, omax, onn, overflow, hit.sum(1, dtype=torch.int32)
 
 
@@ -381,29 +267,29 @@ def flix_apply_range_pass(g, pref, node_count, keys, vals):
     nb, npb, ns = keys.shape
     dev = keys.device
     args = (g, pref, node_count, keys, vals)
-    _check(dev, ("g", "pref", "node_count", "keys", "vals"), args)
+    check(dev, ("g", "pref", "node_count", "keys", "vals"), args)
     if pref.shape != (nb + 1,) or node_count.shape != (nb, npb):
         raise ValueError("range gather: pref or node_count disagrees with keys")
     if vals.shape != keys.shape:
         raise ValueError("range gather: vals disagree with keys")
     if dev.type == "cpu":
         return flix_apply_range_reference(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"flix_apply runs on CUDA or the CPU, not {dev}")
 
-    lib = load_library()
     mr = g.shape[0]
-    with torch.cuda.device(dev):
-        rk = torch.empty((mr,), dtype=torch.int32, device=dev)
-        rv = torch.empty((mr,), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [_ptr(t) for t in args + (rk, rv)]
-        err = lib.flix_range_gather_launch(
-            *ptrs, mr, nb, npb, ns, ctypes.c_void_p(stream)
-        )
-    if err != 0:
-        raise RuntimeError(f"flix_apply range gather failed with CUDA error {err}")
-    LAUNCHES["flix_apply_range"] += 1
+    rk = torch.empty((mr,), dtype=torch.int32, device=dev)
+    rv = torch.empty((mr,), dtype=torch.int32, device=dev)
+    launch(
+        "flix_apply_range",
+        "flix_range_gather_launch",
+        dev,
+        *args,
+        rk,
+        rv,
+        mr,
+        nb,
+        npb,
+        ns,
+    )
     return rk, rv
 
 
@@ -504,7 +390,7 @@ def flix_apply(
 
     # SUCCESSOR past its bucket's largest post-update key: the first key of
     # the next non-empty bucket, from the post-update fence rows
-    smin_pad, sidx_pad = _successor_fence_rows(new_state)
+    smin_pad, sidx_pad = _successor_fence_rows(okeys, onn)
     b1 = _bucket_index(state, key) + 1
     out_key = smin_pad[b1]
     out_val = ovals[sidx_pad[b1], 0, 0]

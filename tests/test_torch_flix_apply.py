@@ -1,6 +1,7 @@
 """The flix_apply port: its plain version against the JAX Pallas kernel
-(interpret mode) on one tiny batch, the launch wrappers' input checks, and
-— on a CUDA card only — the CUDA kernels against their plain versions."""
+(interpret mode) on one tiny batch, and the launch wrappers' input checks.
+The CUDA kernels against their plain versions, on a card only:
+``tests/test_torch_kernels_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -102,76 +103,3 @@ def test_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
     header = tmp_path / "flix_phases.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path() != before
-
-
-# ---------------------------------------------------------------------------
-# on the card: each CUDA kernel against its plain version, exact
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _random_case(rng, n_keys, ns, npb, device, n_ops=4096):
-    keys = rng.choice(1 << 24, n_keys, replace=False).astype(np.int32)
-    st = tcore.build(keys, keys ^ 0x5A5A, node_size=ns, nodes_per_bucket=npb, device=device)
-    absent = rng.integers(0, 1 << 24, n_ops).astype(np.int32)
-    tags = rng.choice(
-        [tcore.OP_INSERT, tcore.OP_DELETE, tcore.OP_POINT, tcore.OP_SUCCESSOR,
-         tcore.OP_RANGE], n_ops, p=[0.2, 0.2, 0.4, 0.15, 0.05],
-    ).astype(np.int32)
-    k = np.where(tags == tcore.OP_DELETE, rng.choice(keys, n_ops), absent)
-    k, first = np.unique(k, return_index=True)  # one update per key
-    tags = tags[first]
-    v = np.where(tags == tcore.OP_RANGE, np.minimum(k + 5000, EMPTY - 1), k + 1)
-    ops, _ = tcore.make_ops(tags, k, v.astype(np.int32), device=device)
-    return st, ops
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("ns,npb", [(32, 16), (8, 8), (32, 64)])
-def test_kernels_match_plain_versions_on_card(cuda, ns, npb):
-    rng = np.random.default_rng(ns * npb)
-    st, ops = _random_case(rng, 1 << 16, ns, npb, cuda)
-    args = _pass_inputs(st, ops)
-    before = dict(fa.LAUNCHES)
-    got = fa.flix_apply_pass(*args)
-    want = fa.flix_apply_reference(*args)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES["flix_apply"] == before["flix_apply"] + 1
-    for i, (w, g) in enumerate(zip(want, got)):
-        assert torch.equal(w, g), f"output {i}"
-    new = tcore.FliXState(got[0], got[1], got[2], got[3], got[4], st.mkba, st.needs_restructure)
-    live = got[2].sum(1, dtype=torch.int32)
-    pref = torch.cat([live.new_zeros(1), torch.cumsum(live, 0, dtype=torch.int32)])
-    g = torch.randint(-1, int(pref[-1]), (8192,), device=cuda, dtype=torch.int32)
-    g = torch.sort(g).values
-    w = fa.flix_apply_range_reference(g, pref, new.node_count, new.keys, new.vals)
-    k = fa.flix_apply_range_pass(g, pref, new.node_count, new.keys, new.vals)
-    assert torch.equal(w[0], k[0]) and torch.equal(w[1], k[1])
-
-
-@pytest.mark.cuda
-def test_engine_fused_matches_reference_on_card(cuda):
-    st, ops = _random_case(np.random.default_rng(5), 1 << 15, 32, 16, cuda)
-    cfg = tcore.ExecConfig(max_results=4096)
-    a = tcore.apply_ops_safe(st, ops, config=cfg.replace(impl="fused"))
-    b = tcore.apply_ops_safe(st, ops, config=cfg.replace(impl="reference"))
-    for f in ("keys", "node_count", "node_max", "num_nodes"):
-        assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
-    live = a[0].keys != EMPTY
-    assert torch.equal(a[0].vals[live], b[0].vals[live])
-    for k in a[1]:
-        assert torch.equal(a[1][k], b[1][k]), k
-
-
-@pytest.mark.cuda
-def test_oversized_geometry_is_refused(cuda):
-    st = tcore.empty_state(2, 2048, 32, device=cuda)
-    ops, _ = tcore.make_ops(np.array([tcore.OP_POINT], np.int32), np.array([5], np.int32))
-    with pytest.raises(ValueError, match="shared memory"):
-        tcore.apply_ops(st, ops, config=tcore.ExecConfig(impl="fused"))

@@ -41,4 +41,6 @@ def test_port_imports_neither_jax_nor_the_reference():
         cwd=str(SRC.parent),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.strip()) == expected >= 14
+    assert int(proc.stdout.strip()) == expected >= 22
+    kernels = {m.name for m in pkgutil.iter_modules([str(SRC / "repro_torch" / "kernels")])}
+    assert {"ops", "flix_query", "flix_successor", "flix_insert", "flix_delete"} <= kernels

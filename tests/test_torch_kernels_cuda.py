@@ -1,0 +1,162 @@
+"""The port's CUDA kernels against their plain torch versions, exact, on a
+CUDA card only (the kernels have no CPU mode; these tests skip without a
+card).  The file imports no JAX, so it also runs where only torch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import core as tcore  # noqa: E402
+from repro_torch.kernels import LAUNCHES, ops  # noqa: E402
+from repro_torch.kernels import flix_apply as fa  # noqa: E402
+from repro_torch.kernels import flix_delete as fd  # noqa: E402
+from repro_torch.kernels import flix_insert as fi  # noqa: E402
+from repro_torch.kernels import flix_query as fq  # noqa: E402
+from repro_torch.kernels import flix_successor as fs  # noqa: E402
+
+EMPTY = tcore.EMPTY
+GEOMETRIES = [(32, 16), (8, 8), (32, 64), (64, 8)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _equal(want, got, what):
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert w.shape == g.shape and torch.equal(w, g), f"{what}: output {i}"
+
+
+def _random_case(rng, n_keys, ns, npb, device, n_ops=4096):
+    keys = rng.choice(1 << 24, n_keys, replace=False).astype(np.int32)
+    st = tcore.build(keys, keys ^ 0x5A5A, node_size=ns, nodes_per_bucket=npb, device=device)
+    absent = rng.integers(0, 1 << 24, n_ops).astype(np.int32)
+    tags = rng.choice(
+        [tcore.OP_INSERT, tcore.OP_DELETE, tcore.OP_POINT, tcore.OP_SUCCESSOR,
+         tcore.OP_RANGE], n_ops, p=[0.2, 0.2, 0.4, 0.15, 0.05],
+    ).astype(np.int32)
+    k = np.where(tags == tcore.OP_DELETE, rng.choice(keys, n_ops), absent)
+    k, first = np.unique(k, return_index=True)  # one update per key
+    tags = tags[first]
+    v = np.where(tags == tcore.OP_RANGE, np.minimum(k + 5000, EMPTY - 1), k + 1)
+    ops_, _ = tcore.make_ops(tags, k, v.astype(np.int32), device=device)
+    return st, ops_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", [(32, 16), (8, 8), (32, 64)])
+def test_kernels_match_plain_versions_on_card(cuda, ns, npb):
+    rng = np.random.default_rng(ns * npb)
+    st, ops_ = _random_case(rng, 1 << 16, ns, npb, cuda)
+    args = list(fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)[0])
+    before = dict(LAUNCHES)
+    got = fa.flix_apply_pass(*args)
+    want = fa.flix_apply_reference(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_apply"] == before["flix_apply"] + 1
+    _equal(want, got, "flix_apply")
+    new = tcore.FliXState(got[0], got[1], got[2], got[3], got[4], st.mkba, st.needs_restructure)
+    live = got[2].sum(1, dtype=torch.int32)
+    pref = torch.cat([live.new_zeros(1), torch.cumsum(live, 0, dtype=torch.int32)])
+    g = torch.randint(-1, int(pref[-1]), (8192,), device=cuda, dtype=torch.int32)
+    g = torch.sort(g).values
+    w = fa.flix_apply_range_reference(g, pref, new.node_count, new.keys, new.vals)
+    k = fa.flix_apply_range_pass(g, pref, new.node_count, new.keys, new.vals)
+    assert torch.equal(w[0], k[0]) and torch.equal(w[1], k[1])
+
+
+@pytest.mark.cuda
+def test_engine_fused_matches_reference_on_card(cuda):
+    st, ops_ = _random_case(np.random.default_rng(5), 1 << 15, 32, 16, cuda)
+    cfg = tcore.ExecConfig(max_results=4096)
+    a = tcore.apply_ops_safe(st, ops_, config=cfg.replace(impl="fused"))
+    b = tcore.apply_ops_safe(st, ops_, config=cfg.replace(impl="reference"))
+    for f in ("keys", "node_count", "node_max", "num_nodes"):
+        assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
+    live = a[0].keys != EMPTY
+    assert torch.equal(a[0].vals[live], b[0].vals[live])
+    for k in a[1]:
+        assert torch.equal(a[1][k], b[1][k]), k
+
+
+@pytest.mark.cuda
+def test_oversized_geometry_is_refused(cuda):
+    st = tcore.empty_state(2, 2048, 32, device=cuda)
+    ops_, _ = tcore.make_ops(np.array([tcore.OP_POINT], np.int32), np.array([5], np.int32))
+    with pytest.raises(ValueError, match="shared memory"):
+        tcore.apply_ops(st, ops_, config=tcore.ExecConfig(impl="fused"))
+    q = torch.tensor([5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="npb=2048"):
+        ops.flix_insert(st, q, q)
+    with pytest.raises(ValueError, match="npb=2048"):
+        fd.flix_delete_pass(st.keys, st.vals, st.mkba, q)
+
+
+def _state_with_holes(rng, ns, npb, device):
+    """Keys from a sparse space (so one bucket's range can take a flood),
+    with a run of deleted keys that empties whole buckets."""
+    keys = np.sort(rng.choice(1 << 26, 1 << 15, replace=False)).astype(np.int32)
+    st = tcore.build(keys, keys ^ 0x33, node_size=ns, nodes_per_bucket=npb, device=device)
+    st = tcore.delete(st, torch.as_tensor(keys[1000:1400], device=device))[0]
+    return st, np.concatenate([keys[:1000], keys[1400:]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", GEOMETRIES)
+def test_query_kernels_match_plain_on_card(cuda, ns, npb):
+    rng = np.random.default_rng(ns + npb)
+    st, live = _state_with_holes(rng, ns, npb, cuda)
+    q = np.concatenate([
+        rng.choice(live, 5000), rng.integers(0, 1 << 26, 5000),
+        np.repeat(live[990:1010], 3), [0, 1, tcore.MAX_VALID - 1, tcore.MAX_VALID, EMPTY],
+    ])
+    q = torch.as_tensor(np.sort(q).astype(np.int32), device=cuda)
+    planes = (st.keys, st.vals, st.node_max, st.mkba, q)
+    before = dict(LAUNCHES)
+    got = fq.flix_point_query(*planes)
+    gk, gv = fs.flix_successor(*planes)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_point_query"] == before["flix_point_query"] + 1
+    assert LAUNCHES["flix_successor"] == before["flix_successor"] + 1
+    assert torch.equal(got, fq.flix_point_query_reference(*planes))
+    _equal(fs.flix_successor_reference(*planes), (gk, gv), "flix_successor")
+    assert torch.equal(got, tcore.point_query(st, q))
+    _equal(tcore.successor_query(st, q), (gk, gv), "successor vs core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", GEOMETRIES)
+def test_update_kernels_match_plain_on_card(cuda, ns, npb):
+    rng = np.random.default_rng(7 * ns + npb)
+    st, live = _state_with_holes(rng, ns, npb, cuda)
+    cap = ns * npb
+    b = int(np.searchsorted(st.mkba.cpu().numpy(), live[3000]))
+    lo, hi = int(st.mkba[b - 1]) + 1, int(st.mkba[b])  # bucket b's key range
+    flood = rng.choice(np.arange(lo, hi + 1), cap + 40, replace=False)
+    fresh = rng.integers(0, 1 << 26, 3000)
+    ins = np.unique(np.concatenate([flood, fresh, [0, tcore.MAX_VALID]])).astype(np.int32)
+    ik = torch.as_tensor(ins, device=cuda)
+    iv = ik * 7 + 1
+    args = (st.keys, st.vals, st.node_max, st.mkba, ik, iv)
+    got = fi.flix_insert_pass(*args)
+    _equal(fi.flix_insert_reference(*args), got, "flix_insert")
+    assert int(got[5].max()) == 2  # the flooded bucket overflows both ways
+
+    dels = np.concatenate([
+        live[::5], np.repeat(live[2000:2100], 3), rng.integers(0, 1 << 26, 2000), [0],
+    ])
+    dk = torch.as_tensor(np.sort(dels).astype(np.int32), device=cuda)
+    got = fd.flix_delete_pass(st.keys, st.vals, st.mkba, dk)
+    _equal(fd.flix_delete_reference(st.keys, st.vals, st.mkba, dk), got, "flix_delete")
+    new = ops.flix_delete(st, dk)
+    want = tcore.delete(st, dk)[0]
+    for f in ("keys", "node_count", "node_max", "num_nodes"):
+        assert torch.equal(getattr(new, f), getattr(want, f)), f
