@@ -10,25 +10,30 @@ line, and no phase catches its own failure:
   2. build    — nvcc builds the kernel library from ``src/repro_torch/csrc``,
                 one process per source, all started together;
   3. kernels  — each CUDA kernel against its plain torch version on the card,
-                exactly (all int32).  flix_apply and its range gather: 4 mixed
-                batches and a boundary-key batch at 2^18 keys, a long-stripe
-                geometry (2048 slots per bucket), and an overflow-then-retry
-                case through ``apply_ops_safe``.  flix_point_query,
-                flix_successor, flix_insert and flix_delete: at 2^18 keys in
-                the default geometry and in 8x8 nodes, and at 2^16 keys in
-                64-node stripes, with mixed hit/miss queries, boundary keys,
-                emptied buckets, duplicate delete keys and an insert batch
-                that overflows a bucket;
+                exactly (all int32).  flix_apply, its staged variant (held
+                against the single-buffer kernel too) and the range gather:
+                4 mixed batches and a boundary-key batch at 2^18 keys, a
+                long-stripe geometry (2048 slots per bucket), and an
+                overflow-then-retry case through ``apply_ops_safe``.
+                flix_point_query, flix_successor, flix_insert and
+                flix_delete: at 2^18 keys in the default geometry and in 8x8
+                nodes, and at 2^16 keys in 64-node stripes, with mixed
+                hit/miss queries, boundary keys, emptied buckets, duplicate
+                delete keys and an insert batch that overflows a bucket.
+                flix_range's count and scatter: ranges on bucket fences,
+                hi <= lo, over emptied buckets, and a truncating budget;
   4. main     — the paper's smallest build: 2^24 unique uniform keys from a
                 2^27 key space at the default geometry (32-key nodes, 16 per
                 bucket, fill 0.5: 2^20 buckets, ~4.4 GB of state), then 8
                 batches of 2^20 ops (20% INSERT fresh, 20% DELETE live, 50%
                 POINT half hits, 9% SUCCESSOR, 1% RANGE of width 64,
                 max_results=65536) through make_ops → apply_ops_safe →
-                unsort.  Each batch must launch both flix_apply kernels and
-                must not retry; its results and post-state are held against
-                the port's plain-torch reference engine on the card, and the
-                final state passes the invariant checker;
+                unsort, each with ``pipeline="off"`` (the single-buffer
+                stripe kernel) and ``pipeline="on"`` (the staged one).  Each
+                run must launch its stripe kernel and the range gather and
+                must not retry; both runs are held against each other and
+                against the port's plain-torch reference engine on the card,
+                and the final state passes the invariant checker;
   5. fig9     — the paper's Fig. 9 round schedule (benchmarks/query_qtmf.py)
                 through ``repro_torch.kernels.ops`` on a fresh build of the
                 same size: 4 insert rounds of 2^22 fresh keys, then 4 delete
@@ -38,10 +43,26 @@ line, and no phase catches its own failure:
                 port's core function on the card, every round must launch its
                 kernels, no insert may overflow, and the final state passes
                 the invariant checker;
-  6. the kernels line, the card line, and the result line.
+  6. serve    — ``KVPageIndex(node_size=32, nodes_per_bucket=16,
+                snapshot_window=2)`` on the card, holding 2^24 page keys
+                (2^16 sequence slots x 256 pages, 2^20 buckets) with a TTL
+                plane, for 12 steps with an advancing clock: 2^14 sequences
+                append a page with a deadline, 2^18 lookups (half hits), 2^12
+                get-or-sets, 2^8 sequences freed and earlier ones re-admitted
+                with a 128-page prefill, 2^10 page enumerations under a 2^18
+                range budget; every fourth step is read-only and the last
+                reads ``as_of`` a pinned version.  Every step is held against
+                a reference-engine index run on the same pre-step state, no
+                step may retry, and the final state passes I1-I6 at its clock;
+  7. range    — ``flix_range`` on a 2^24-key build: 2^16 narrow (~16 keys)
+                and 2^12 wide (~256 keys) ranges (benchmarks/range_mix.py)
+                under max_results = 2^20, held against ``dense_range_scan``;
+                ``range_query`` and ``with_successor_cache`` against their
+                definitions;
+  8. the kernels line, the card line, and the result line.
 
-The script needs one card and exits non-zero without one, or when it runs
-without the repository's ``src/`` beside it.
+Each phase prints its seconds.  The script needs one card and exits non-zero
+without one, or when it runs without the repository's ``src/`` beside it.
 """
 
 from __future__ import annotations
@@ -51,7 +72,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from statistics import fmean
+from statistics import fmean, median
 
 import torch
 
@@ -68,16 +89,33 @@ FULL_MAX_RESULTS = 65536
 FIG9_ROUND = 1 << 22  # keys per insert / delete round: a quarter of the build
 FIG9_QUERIES = 1 << 24  # all-hit and all-miss point queries per round
 FIG9_SUCC = 1 << 22  # uniform successor queries per round
-APPLY_KERNELS = ("flix_apply", "flix_apply_range")
+SERVE_SEQS = 1 << 16  # sequence slots of the serving index
+SERVE_PAGES = 256  # pages per slot in the installed build
+SERVE_STEPS = 12
+SERVE_APPENDS = 1 << 14  # sequences appending one page per update step
+SERVE_LOOKUPS = 1 << 18
+SERVE_GETSETS = 1 << 12
+SERVE_FREES = 1 << 8
+SERVE_PREFILL = 128  # pages of a re-admitted sequence
+SERVE_RANGES = 1 << 10
+SERVE_RANGE_BUDGET = 1 << 18
+SERVE_TTL = 40  # clock units an appended page lives (4 steps)
+RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
+RANGE_MAX_RESULTS = 1 << 20
+STRIPE_KERNEL = {"off": "flix_apply", "on": "flix_apply_staged"}
 CSRC = "src/repro_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
     "flix_apply": ("flix_apply.cu", "src/repro/kernels/flix_apply.py:88"),
-    "flix_apply_range": ("flix_apply.cu", "src/repro/kernels/flix_apply.py:327"),
+    "flix_apply_staged": ("flix_apply_staged.cu",
+                          "src/repro/kernels/flix_apply.py:414"),
+    "flix_apply_range": ("flix_range.cu", "src/repro/kernels/flix_apply.py:327"),
     "flix_point_query": ("flix_query.cu", "src/repro/kernels/flix_query.py:54"),
     "flix_successor": ("flix_successor.cu", "src/repro/kernels/flix_successor.py:45"),
     "flix_insert": ("flix_insert.cu", "src/repro/kernels/flix_insert.py:39"),
     "flix_delete": ("flix_delete.cu", "src/repro/kernels/flix_delete.py:48"),
+    "flix_range_count": ("flix_range.cu", "src/repro/kernels/flix_range.py:53"),
+    "flix_range_scatter": ("flix_range.cu", "src/repro/kernels/flix_range.py:82"),
 }
 
 
@@ -229,23 +267,30 @@ class KernelCheck:
         from repro_torch import core
         from repro_torch.core.state import FliXState
         from repro_torch.kernels import flix_apply as fa
+        from repro_torch.kernels import flix_range as fr
 
         args, _ = fa.stripe_inputs(state, ops.tag, ops.key, ops.val)
         got = fa.flix_apply_pass(*args)
+        staged = fa.flix_apply_staged_pass(state.num_nodes, *args)
         torch.cuda.synchronize()
         want = fa.flix_apply_reference(*args)
         e1 = max_abs_err(want, got)
+        e3 = max(max_abs_err(want, staged), max_abs_err(got, staged))
+        self.err["flix_apply_staged"] = max(self.err["flix_apply_staged"], e3)
+        del staged
         new = FliXState(*got[:5], mkba=state.mkba, needs_restructure=state.needs_restructure)
         is_range = ops.tag == core.OP_RANGE
         g, pref, *_ = fa.range_slots(new, is_range, ops.key, ops.val, max_results)
         rk = fa.flix_apply_range_pass(g, pref, new.node_count, new.keys, new.vals)
         torch.cuda.synchronize()
-        e2 = max_abs_err(fa.flix_apply_range_reference(g, pref, new.node_count, new.keys,
-                                                       new.vals), rk)
+        e2 = max_abs_err(fr.flix_range_gather_reference(g, pref, new.node_count, new.keys,
+                                                        new.vals), rk)
         self.err["flix_apply"] = max(self.err["flix_apply"], e1)
         self.err["flix_apply_range"] = max(self.err["flix_apply_range"], e2)
-        log(f"  {label}: flix_apply max_abs_err={e1}, flix_apply_range max_abs_err={e2}")
-        if e1 or e2:
+        log(f"  {label}: flix_apply max_abs_err={e1}, flix_apply_staged max_abs_err={e3} "
+            f"(against the plain version and the single-buffer kernel), "
+            f"flix_apply_range max_abs_err={e2}")
+        if e1 or e2 or e3:
             raise AssertionError(f"{label}: a kernel disagrees with its plain version")
         return args, got
 
@@ -309,6 +354,24 @@ def phase_kernels(dev, check: KernelCheck):
     log(f"  engine == reference engine on all 5 batches; {emptied} emptied buckets")
     assert emptied > 0
 
+    log("phase 3e: flix_range count and scatter on the same state")
+    nb = state.num_buckets
+    gone = torch.nonzero(state.num_nodes == 0)[:, 0]
+    gone = gone[(gone > 0) & (gone < nb - 1)][:50]
+    some = torch.randint(1, nb - 1, (200,), generator=gen, device=dev)
+    b = torch.cat([gone, some])
+    start = state.mkba[b - 1] + 1  # first key a bucket could hold
+    lo = torch.cat([start, start, state.mkba[b], start + 7, traffic._rand_keys(2000)])
+    hi = torch.cat([state.mkba[b] + 1, start - 5, state.mkba[b] + 1, start,
+                    lo[-2000:] + torch.randint(-500, 4000, (2000,), generator=gen, device=dev)])
+    lo, order = torch.sort(lo.to(torch.int32), stable=True)
+    hi = hi.to(torch.int32)[order]
+    for budget in (512, 1 << 21):
+        got = range_case(check, state, lo, hi, budget, f"ranges @ max_results={budget}")
+        log(f"  {lo.numel()} ranges, max_results={budget}: count and scatter equal their "
+            f"plain versions, the scan equals dense_range_scan; truncated {int(got[4])}")
+        assert (int(got[4]) > 0) == (budget == 512)
+
     log("phase 3b: long stripes (64 nodes x 32 keys = 2048 slots per bucket)")
     traffic = Traffic(1 << 20, 1 << 14, gen)
     keys, vals = traffic.initial()
@@ -336,10 +399,36 @@ def phase_kernels(dev, check: KernelCheck):
     log(f"  retried once into geometry {fused[0].geometry}")
 
 
+def range_case(check, state, lo, hi, max_results, label):
+    """flix_range's two passes against their plain versions, and the whole
+    scan against ``dense_range_scan``, on one state and sorted batch."""
+    from repro_torch import core
+    from repro_torch.core.query import live_prefix, range_offsets, range_slot_ranks
+    from repro_torch.kernels import flix_range as fr
+
+    pref = live_prefix(state.node_count)
+    meta = (state.keys, state.node_count, state.node_max, state.mkba, pref, lo, hi)
+    want = fr.flix_range_count_reference(*meta)
+    check.hold("flix_range_count", want, fr.flix_range_count(*meta), label)
+    rank_lo, full = want
+    is_range = torch.ones(lo.shape, dtype=torch.bool, device=lo.device)
+    start, _, total, _ = range_offsets(full, is_range, max_results)
+    g = range_slot_ranks(rank_lo, start, total, max_results)
+    gargs = (g, pref, state.node_count, state.keys, state.vals)
+    check.hold("flix_range_scatter", fr.flix_range_gather_reference(*gargs),
+               fr.flix_range_scatter(*gargs), label)
+    got = fr.flix_range(state.keys, state.vals, state.mkba, lo, hi, max_results=max_results)
+    oracle = core.dense_range_scan(state, is_range, lo, hi, max_results=max_results)
+    if max_abs_err(oracle, got):
+        raise AssertionError(f"{label}: flix_range differs from dense_range_scan")
+    return got
+
+
 def phase_main(dev):
     from repro_torch import core
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flix_apply as fa
+    from repro_torch.kernels import flix_range as fr
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -352,36 +441,59 @@ def phase_main(dev):
     log(f"  geometry nb={nb} npb={npb} ns={ns}, {state.memory_bytes() / 1e9:.3f} GB of state, "
         f"build {build_ms:.1f} ms")
     cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS)
-    launches = {k: 0 for k in APPLY_KERNELS}
-    k_ms, r_ms, bounds, rbounds = [], [], [], []
+    launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range")}
+    e2e = {"off": [], "on": []}
+    k_ms = {"off": [], "on": []}
+    r_ms, bounds, rbounds = [], [], []
     for i in range(FULL_BATCHES):
         tags, keys, vals = traffic.mixed(FULL_OPS)
-        torch.cuda.synchronize()
-
-        reset_launches()
-        t0 = time.perf_counter()
-        ops, perm = core.make_ops(tags, keys, vals)
-        new_state, res, stats = core.apply_ops_safe(state, ops, config=cfg)
-        value = core.unsort(res["value"], perm)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = {k: LAUNCHES[k] for k in APPLY_KERNELS}
-        for k, c in counts.items():
-            if c < 1:
-                raise AssertionError(f"batch {i}: kernel {k} was not launched on the main path")
-            launches[k] += c
-        assert stats["restructure_retries"] == 0, stats
-        assert value.shape == (FULL_OPS,)
+        runs = {}
+        for pipe in ("off", "on"):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            ops, perm = core.make_ops(tags, keys, vals)
+            new_state, res, stats = core.apply_ops_safe(
+                state, ops, config=cfg.replace(pipeline=pipe)
+            )
+            value = core.unsort(res["value"], perm)
+            torch.cuda.synchronize()
+            e2e[pipe].append((time.perf_counter() - t0) * 1e3)
+            counts = {k: LAUNCHES[k] for k in launches}
+            for k in (STRIPE_KERNEL[pipe], "flix_apply_range"):
+                if counts[k] < 1:
+                    raise AssertionError(f"batch {i} ({pipe}): kernel {k} was not launched")
+            other = STRIPE_KERNEL["on" if pipe == "off" else "off"]
+            if counts[other]:
+                raise AssertionError(f"batch {i} ({pipe}): {other} was launched")
+            for k, c in counts.items():
+                launches[k] += c
+            assert stats["restructure_retries"] == 0, stats
+            assert value.shape == (FULL_OPS,)
+            runs[pipe] = (new_state, res, stats)
+        check_same(f"full batch {i}: pipeline on vs off", runs["on"], runs["off"])
 
         ref, ref_ms = host_ms(
             lambda: core.apply_ops_safe(state, ops, config=cfg.replace(impl="reference"))
         )
-        check_same(f"full batch {i}", (new_state, res, stats), ref)
+        check_same(f"full batch {i}", runs["off"], ref)
+        check_same(f"full batch {i} (staged)", runs["on"], ref)
         del ref
+        new_state, res, stats = runs.pop("off")
+        del runs
 
-        # the kernels alone, re-launched on this batch's inputs (not counted)
+        # the kernels alone, re-launched on this batch's inputs in turns
+        # (single, staged, staged, single; not counted)
         args, r = fa.stripe_inputs(state, ops.tag, ops.key, ops.val)
-        k_ms.append(event_ms(lambda: fa.flix_apply_pass(*args), 3))
+        args_nn = state.num_nodes
+        single = lambda: fa.flix_apply_pass(*args)  # noqa: E731
+        staged = lambda: fa.flix_apply_staged_pass(args_nn, *args)  # noqa: E731
+        turns = [("off", single), ("on", staged), ("on", staged), ("off", single)]
+        times = {"off": [], "on": []}
+        for pipe, fn in turns:
+            times[pipe].append(event_ms(fn, 2))
+        for pipe in times:
+            k_ms[pipe].append(fmean(times[pipe]))
         is_range = ops.tag == core.OP_RANGE
         g, pref, *_ = fa.range_slots(new_state, is_range, ops.key, ops.val, cfg.max_results)
         rargs = (g, pref, new_state.node_count, new_state.keys, new_state.vals)
@@ -392,11 +504,12 @@ def phase_main(dev):
                  + 8 * n_ins + 4 * n_del + 6 * 4 * nb + ops.tag.nbytes + ops.key.nbytes
                  + sum(o.nbytes for o in outs))
         bounds.append(moved / HBM_BYTES_PER_S * 1e3)
-        valid = int((g >= 0).sum())
-        rbounds.append((12 * g.numel() + valid * (4 * npb + 8)) / HBM_BYTES_PER_S * 1e3)
+        rbounds.append(gather_bytes(g, pref, npb) / HBM_BYTES_PER_S * 1e3)
         del outs
-        log(f"  batch {i}: {ms:.3f} ms end to end, {FULL_OPS / ms * 1e3:.6g} ops/s; "
-            f"flix_apply {k_ms[-1]:.4f} ms (bound {bounds[-1]:.4f} ms, {moved} bytes), "
+        log(f"  batch {i}: end to end {e2e['off'][-1]:.3f} ms (pipeline off), "
+            f"{e2e['on'][-1]:.3f} ms (on), {FULL_OPS / e2e['on'][-1] * 1e3:.6g} ops/s (on); "
+            f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['on'][-1]:.4f} ms "
+            f"(bound {bounds[-1]:.4f} ms, {moved} bytes), "
             f"range gather {r_ms[-1]:.4f} ms; reference engine {ref_ms:.3f} ms; "
             f"launches {counts}; inserted {int(stats['inserted'])} deleted "
             f"{int(stats['deleted'])} range_truncated {int(stats['range_truncated'])}")
@@ -406,24 +519,31 @@ def phase_main(dev):
     core.check_range_results(ops, res, max_results=cfg.max_results)
     log(f"  invariants I1-I5 hold on the final state ({inv_ms:.0f} ms); "
         f"live keys {int(state.live_keys())}")
+    for pipe in ("off", "on"):
+        log(f"  pipeline={pipe}: median end to end {median(e2e[pipe]):.3f} ms, "
+            f"median {STRIPE_KERNEL[pipe]} {median(k_ms[pipe]):.4f} ms")
 
     # plain versions at the last batch's shapes: no yardstick of speed, they
-    # repeat the kernels' arithmetic
-    got = fa.flix_apply_pass(*args)
+    # repeat the kernels' arithmetic (the staged kernel's is the same one)
     want, plain_ms = host_ms(lambda: fa.flix_apply_reference(*args))
-    e1 = max_abs_err(want, got)
-    del want, got
+    e1 = max_abs_err(want, fa.flix_apply_pass(*args))
+    e3 = max_abs_err(want, fa.flix_apply_staged_pass(args_nn, *args))
+    del want
     rk = fa.flix_apply_range_pass(*rargs)
-    rwant, rplain_ms = host_ms(lambda: fa.flix_apply_range_reference(*rargs))
+    rwant, rplain_ms = host_ms(lambda: fr.flix_range_gather_reference(*rargs))
     e2 = max_abs_err(rwant, rk)
     log(f"  plain versions at main-path shapes: flix_apply {plain_ms:.3f} ms "
-        f"(max_abs_err {e1}), range gather {rplain_ms:.3f} ms (max_abs_err {e2})")
-    if e1 or e2:
+        f"(max_abs_err {e1}; flix_apply_staged's {e3}), range gather {rplain_ms:.3f} ms "
+        f"(max_abs_err {e2})")
+    if e1 or e2 or e3:
         raise AssertionError("a kernel disagrees with its plain version at main-path shapes")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {
-        "flix_apply": dict(launches=launches["flix_apply"], ms=fmean(k_ms),
+        "flix_apply": dict(launches=launches["flix_apply"], ms=fmean(k_ms["off"]),
                            plain_ms=plain_ms, bound_ms=fmean(bounds), err=e1),
+        "flix_apply_staged": dict(launches=launches["flix_apply_staged"],
+                                  ms=fmean(k_ms["on"]), plain_ms=plain_ms,
+                                  bound_ms=fmean(bounds), err=e3),
         "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_ms),
                                  plain_ms=rplain_ms, bound_ms=fmean(rbounds), err=e2),
     }
@@ -695,6 +815,317 @@ def phase_fig9(dev, check: KernelCheck):
                     bound_ms=fmean(bounds[k]), err=check.err[k]) for k in names}
 
 
+def serve_build(dev):
+    """The installed index content: every one of the 2^16 sequence slots
+    holds pages [0, 256), slot s*256 + p, plus the index's seed key."""
+    from repro_torch import core
+    from repro_torch.serve import PAGE_BITS
+
+    seq = torch.arange(SERVE_SEQS, dtype=torch.int32, device=dev)
+    page = torch.arange(SERVE_PAGES, dtype=torch.int32, device=dev)
+    keys = ((seq[:, None] << PAGE_BITS) | page[None, :]).reshape(-1)
+    keys = torch.cat([keys, keys.new_full((1,), core.MAX_VALID)])
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=dev)
+    return core.build(keys, vals, node_size=32, nodes_per_bucket=16, device=dev)
+
+
+def check_same_step(label, got, want):
+    """Two StepResults: slots, the dense RANGE output and the stats equal."""
+    if not torch.equal(got.slots, want.slots):
+        raise AssertionError(f"{label}: slots differ from the reference index")
+    for k in want.range_out or {}:
+        if not torch.equal(got.range_out[k], want.range_out[k]):
+            raise AssertionError(f"{label}: range {k} differs from the reference index")
+    for k, v in want.stats.items():
+        if int(got.stats[k]) != int(v):
+            raise AssertionError(f"{label}: stat {k}: {int(got.stats[k])} != {int(v)}")
+
+
+def phase_serve(dev):
+    """The serving path: KVPageIndex on the card, every step against an
+    index on the reference engine that starts from the same state."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import PAGE_BITS, KVPageIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 4)
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    idx = KVPageIndex(**geometry, snapshot_window=2, device=dev)
+    ref = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"), device=dev)
+    idx.state, build_ms = host_ms(lambda: serve_build(dev))
+    nb, npb, ns = idx.state.geometry
+    cap = npb * ns
+    log(f"phase 6: KVPageIndex on {idx.live_pages()} page keys ({SERVE_SEQS} sequence slots "
+        f"x {SERVE_PAGES} pages), nb={nb} npb={npb} ns={ns}, build {build_ms:.1f} ms")
+
+    # the host's model of the index: base pages [0, base[s]) of each slot,
+    # their slots, the get-or-set pages, and the freed ids waiting for reuse
+    base = np.full(SERVE_SEQS, SERVE_PAGES)
+    slot0 = np.arange(SERVE_SEQS, dtype=np.int64) * SERVE_PAGES
+    live = np.ones(SERVE_SEQS, bool)
+    freed: list[int] = []
+    getset_slot: dict[int, int] = {}
+    prev_gs = np.zeros(0, np.int64)
+    pins: dict[int, tuple] = {}
+    names = ("flix_apply", "flix_apply_staged", "flix_apply_range")
+    launches = {k: 0 for k in names}
+    step_ms = {"update": [], "read": []}
+    now = 0
+    for i in range(SERVE_STEPS):
+        now = 10 * (i + 1)
+        live_ids = np.nonzero(live)[0]
+        read_only = i % 4 == 3
+        kw = dict(range_budget=SERVE_RANGE_BUDGET, now=now)
+        frees = np.zeros(0, np.int64)
+        if not read_only:
+            frees = rng.choice(live_ids, SERVE_FREES, replace=False)
+            readmit = np.array(freed[:SERVE_FREES], np.int64)
+            del freed[:SERVE_FREES]
+            stay = np.setdiff1d(live_ids, frees)
+            appenders = rng.choice(stay, SERVE_APPENDS, replace=False)
+            r_pages = np.tile(np.arange(SERVE_PREFILL), len(readmit))
+            a_seq = np.concatenate([appenders, np.repeat(readmit, SERVE_PREFILL)])
+            a_page = np.concatenate([np.full(SERVE_APPENDS, SERVE_PAGES + i), r_pages])
+            r_slot0 = ((1 << 28) + i * SERVE_FREES * SERVE_PREFILL
+                       + np.arange(len(readmit)) * SERVE_PREFILL)
+            a_slot = np.concatenate([(1 << 27) + i * SERVE_APPENDS + np.arange(SERVE_APPENDS),
+                                     np.repeat(r_slot0, SERVE_PREFILL) + r_pages])
+            a_dead = np.concatenate([np.full(SERVE_APPENDS, now + SERVE_TTL),
+                                     np.full(len(r_pages), int(core.NO_EXPIRY))])
+            # get-or-sets: half re-ask the previous step's pages (hits while
+            # their sequence lives), half ask fresh pages (misses)
+            old = prev_gs[np.isin(prev_gs >> PAGE_BITS, frees, invert=True)]
+            old = old[: SERVE_GETSETS // 2]
+            fresh_seq = rng.choice(stay, SERVE_GETSETS - len(old), replace=False)
+            fresh = (fresh_seq << PAGE_BITS) | (2048 + i)
+            gs = np.concatenate([old, fresh])
+            gs_slot = (1 << 29) + i * SERVE_GETSETS + np.arange(len(gs))
+            kw.update(allocs=(a_seq, a_page, a_slot, a_dead),
+                      getsets=(gs >> PAGE_BITS, gs & ((1 << PAGE_BITS) - 1), gs_slot,
+                               np.full(len(gs), now + 80)),
+                      free_seqs=frees, max_pages=SERVE_PAGES)
+            # the largest per-bucket insert count, and the fullest bucket it
+            # could make: no bucket may overflow, so no step retries
+            ins_keys = torch.as_tensor(np.concatenate([(a_seq << PAGE_BITS) | a_page, fresh]),
+                                       dtype=torch.int32, device=dev)
+            b = torch.searchsorted(idx.state.mkba, ins_keys)
+            per = torch.bincount(b, minlength=nb)
+            fullest = int((idx.state.node_count.sum(1) + per).max())
+            assert fullest <= cap // 2, fullest
+        # lookups: half hits on base pages of sequences that stay, half
+        # misses on pages never allocated; the pinned read leaves out the
+        # sequences the newest version re-admitted
+        stay = np.setdiff1d(live_ids, frees)
+        if i == SERVE_STEPS - 1:
+            stay = np.setdiff1d(stay, readmit)
+        h_seq = rng.choice(stay, SERVE_LOOKUPS // 2)
+        h_page = (rng.random(len(h_seq)) * base[h_seq]).astype(np.int64)
+        m_seq = rng.integers(0, SERVE_SEQS, SERVE_LOOKUPS // 2)
+        m_page = rng.integers(3000, 1 << PAGE_BITS, SERVE_LOOKUPS // 2)
+        kw["lookups"] = (np.concatenate([h_seq, m_seq]), np.concatenate([h_page, m_page]))
+        r_seq = rng.choice(stay, SERVE_RANGES, replace=False)
+        kw["ranges"] = (r_seq << PAGE_BITS, (r_seq + 1) << PAGE_BITS)
+        ref_kw = dict(kw)
+        ref.state = idx.state
+        if i == SERVE_STEPS - 1:  # a read at the version before the newest
+            kw["as_of"] = idx.version - 1
+            del kw["now"]
+            ref.state, ref_kw["now"] = pins[kw["as_of"]]
+
+        torch.cuda.synchronize()
+        reset_launches()
+        got, ms = host_ms(lambda: idx.step(**kw))
+        counts = {k: LAUNCHES[k] for k in names}
+        want = ref.step(**ref_kw)
+        check_same_step(f"serve step {i}", got, want)
+        kind = "read" if read_only else "update"
+        step_ms[kind].append(ms)
+        if read_only:
+            if any(counts.values()):
+                raise AssertionError(f"serve step {i}: a read-only step launched {counts}")
+        else:
+            check_same_state(f"serve step {i}", idx.state, ref.state)
+            if not torch.equal(idx.state.exps, ref.state.exps):
+                raise AssertionError(f"serve step {i}: the expiry plane differs")
+            if counts["flix_apply_staged"] < 2 or counts["flix_apply_range"] < 2:
+                raise AssertionError(f"serve step {i}: kernels not launched: {counts}")
+            assert int(got.stats["restructure_retries"]) == 0, got.stats
+            pins[idx.version] = (idx.state, now)
+            pins.pop(idx.version - 2, None)
+        for k, c in counts.items():
+            launches[k] += c
+        ref.state = None
+
+        # the host model's answers: hits find their slot, misses do not,
+        # get-or-sets return the stored slot of a page they hit
+        slots = got.slots.cpu().numpy().astype(np.int64)
+        n_look = SERVE_LOOKUPS
+        if not (slots[: n_look // 2] == slot0[h_seq] + h_page).all():
+            raise AssertionError(f"serve step {i}: a lookup hit returned a wrong slot")
+        if not (slots[n_look // 2 : n_look] == -1).all():
+            raise AssertionError(f"serve step {i}: a lookup miss found a slot")
+        if not read_only:
+            want_gs = np.array([getset_slot.get(int(k), -1) for k in gs])
+            if not (slots[n_look:] == want_gs).all():
+                raise AssertionError(f"serve step {i}: a get-or-set returned a wrong slot")
+            for k, sl in zip(gs.tolist(), gs_slot.tolist()):
+                getset_slot.setdefault(k, sl)
+            prev_gs = gs
+            live[frees] = False
+            base[frees] = 0
+            freed.extend(frees.tolist())
+            live[readmit] = True
+            base[readmit] = SERVE_PREFILL
+            slot0[readmit] = r_slot0
+        trunc = int(got.stats["range_truncated"])
+        log(f"  step {i} ({kind}{', as_of' if 'as_of' in kw else ''}, now={ref_kw['now']}): "
+            f"{ms:.3f} ms; launches {counts}; expired {int(got.stats.get('expired', 0))}, "
+            f"inserted {int(got.stats['inserted'])}, deleted {int(got.stats['deleted'])}, "
+            f"range_truncated {trunc}" + ("" if read_only else f"; fullest bucket {fullest}"))
+
+    last_now = max(n for _, n in pins.values())
+    _, inv_ms = host_ms(lambda: core.check_invariants(idx.state, now=last_now))
+    log(f"  invariants I1-I6 hold on the final state at now={last_now} ({inv_ms:.0f} ms); "
+        f"live pages {idx.live_pages()}; versions retained {idx.retained_versions}")
+    log(f"  step latency: update median {median(step_ms['update']):.3f} ms "
+        f"(min {min(step_ms['update']):.3f}, max {max(step_ms['update']):.3f}), read-only "
+        f"median {median(step_ms['read']):.3f} ms; launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def range_count_bytes(state, lo, hi) -> int:
+    """Bytes the count pass must move: each op's bounds read and its rank and
+    count written; for each bound the two fences that place it (``mkba[b-1]
+    < q <= mkba[b]``); and, once per bucket or row that the bounds touch, the
+    bucket's ``pref`` entry, its node_max and node_count rows, and the key
+    row that holds the bound."""
+    nb, npb, ns = state.geometry
+    q = torch.cat([lo, hi])
+    b = torch.clamp(torch.searchsorted(state.mkba, q), max=nb - 1)
+    fences = torch.unique(torch.cat([b, torch.clamp(b - 1, min=0)])).numel()
+    nidx = (state.node_max[b] < q[:, None]).sum(1)
+    rows = torch.unique((b * (npb + 1) + nidx)[nidx < npb]).numel()
+    buckets = torch.unique(b).numel()
+    return 16 * lo.numel() + 4 * fences + (8 * npb + 4) * buckets + 4 * ns * rows
+
+
+def gather_bytes(g, pref, npb) -> int:
+    """Bytes a range gather must move: each slot's rank read and its key and
+    value written, one key and value read per valid slot, and, once per
+    bucket that a valid slot lands in, its ``pref`` entry and node_count
+    row."""
+    gv = g[g >= 0]
+    buckets = torch.unique(torch.searchsorted(pref, gv, right=True) - 1).numel()
+    return 12 * g.numel() + 8 * gv.numel() + 4 * (npb + 1) * buckets
+
+
+def phase_range(dev, check):
+    """The standalone RANGE scan on a 2^24-key build (range_mix's widths)."""
+    from repro_torch import core
+    from repro_torch.core.insert import _node_metadata
+    from repro_torch.core.query import (
+        _successor_fence_rows, live_prefix, range_offsets, range_slot_ranks,
+    )
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flix_range as fr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    traffic = Traffic(FULL_SPACE, FULL_KEYS, gen)
+    keys, vals = traffic.initial()
+    state = core.build(keys, vals)
+    del keys, vals
+    nb, npb, ns = state.geometry
+    gap = FULL_SPACE // FULL_KEYS  # mean key spacing, as range_mix.py sets it
+    los, his = [], []
+    for n, span in ((RANGE_NARROW, 16), (RANGE_WIDE, 256)):
+        lo = torch.randint(0, FULL_SPACE - span * gap, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        los.append(lo)
+        his.append(lo + span * gap)
+    lo, order = torch.sort(torch.cat(los), stable=True)
+    hi = torch.cat(his)[order]
+    log(f"phase 7: flix_range on {FULL_KEYS} keys: {RANGE_NARROW} narrow and {RANGE_WIDE} wide "
+        f"ranges, max_results={RANGE_MAX_RESULTS}")
+    planes = (state.keys, state.vals, state.mkba, lo, hi)
+    torch.cuda.synchronize()
+    reset_launches()
+    got, scan_ms = host_ms(lambda: fr.flix_range(*planes, max_results=RANGE_MAX_RESULTS))
+    counts = {k: LAUNCHES[k] for k in ("flix_range_count", "flix_range_scatter")}
+    if counts != {"flix_range_count": 1, "flix_range_scatter": 1}:
+        raise AssertionError(f"flix_range launched {counts}")
+    is_range = torch.ones(lo.shape, dtype=torch.bool, device=dev)
+    want, oracle_ms = host_ms(lambda: core.dense_range_scan(
+        state, is_range, lo, hi, max_results=RANGE_MAX_RESULTS))
+    if max_abs_err(want, got):
+        raise AssertionError("flix_range differs from dense_range_scan")
+    emitted = int(got[3].sum())
+    log(f"  equal to dense_range_scan: {emitted} keys emitted, truncated {int(got[4])}; "
+        f"flix_range {scan_ms:.3f} ms end to end, dense_range_scan {oracle_ms:.3f} ms")
+    del want
+
+    # the passes and the seam alone, on the same inputs (not counted)
+    pref = live_prefix(state.node_count)
+    meta = (state.keys, state.node_count, state.node_max, state.mkba, pref, lo, hi)
+    rank_lo, full = fr.flix_range_count(*meta)
+
+    def seam():
+        _node_metadata(state.keys)
+        p = live_prefix(state.node_count)
+        start, _, total, _ = range_offsets(full, is_range, RANGE_MAX_RESULTS)
+        return p, range_slot_ranks(rank_lo, start, total, RANGE_MAX_RESULTS)
+
+    _, g = seam()
+    gargs = (g, pref, state.node_count, state.keys, state.vals)
+    c_ms = event_ms(lambda: fr.flix_range_count(*meta), 10)
+    seam_ms = event_ms(seam, 10)
+    s_ms = event_ms(lambda: fr.flix_range_scatter(*gargs), 10)
+    c_want, c_plain = host_ms(lambda: fr.flix_range_count_reference(*meta))
+    check.hold("flix_range_count", c_want, (rank_lo, full), "phase 7")
+    s_want, s_plain = host_ms(lambda: fr.flix_range_gather_reference(*gargs))
+    check.hold("flix_range_scatter", s_want, fr.flix_range_scatter(*gargs), "phase 7")
+    c_bytes = range_count_bytes(state, lo, hi)
+    s_bytes = gather_bytes(g, pref, npb)
+    log(f"  count {c_ms:.4f} ms (bound {c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {c_bytes} B), "
+        f"seam {seam_ms:.4f} ms, scatter {s_ms:.4f} ms (bound "
+        f"{s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {s_bytes} B); plain versions: count "
+        f"{c_plain:.3f} ms, scatter {s_plain:.3f} ms")
+
+    # range_query and with_successor_cache against their definitions
+    q = 1 << 12
+    mr = 256
+    rq_k, rq_v, rq_c = core.range_query(state, lo[:q], hi[:q] - 1, max_results=mr)
+    dk, dv, dstart, dcount, _ = core.dense_range_scan(
+        state, is_range[:q], lo[:q], hi[:q], max_results=1 << 21)
+    j = torch.arange(mr, device=dev)
+    take = torch.clamp(dcount, max=mr)
+    at = torch.clamp(dstart[:, None] + j[None, :], max=dk.numel() - 1)
+    ok = j[None, :] < take[:, None]
+    if not (torch.equal(rq_c, take) and torch.equal(rq_k, torch.where(ok, dk[at], core.EMPTY))
+            and torch.equal(rq_v, torch.where(ok, dv[at], core.NOT_FOUND))):
+        raise AssertionError("range_query differs from the dense scan of [lo, hi]")
+    cached = core.with_successor_cache(state)
+    smin, sidx = _successor_fence_rows(state.keys, state.num_nodes)
+    assert core.with_successor_cache(cached) is cached
+    assert torch.equal(cached.succ_smin, smin) and torch.equal(cached.succ_sidx, sidx)
+    sq = torch.sort(traffic._rand_keys(1 << 22)).values
+    for a, b in zip(core.successor_query(cached, sq), core.successor_query(state, sq)):
+        assert torch.equal(a, b), "the successor cache changed an answer"
+    log(f"  range_query ({q} ranges, max_results={mr}) equals the dense scan of [lo, hi]; "
+        f"with_successor_cache is idempotent and leaves 2^22 successor answers unchanged")
+    return {
+        "flix_range_count": dict(launches=counts["flix_range_count"], ms=c_ms, plain_ms=c_plain,
+                                 bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3, err=0),
+        "flix_range_scatter": dict(launches=counts["flix_range_scatter"], ms=s_ms,
+                                   plain_ms=s_plain, bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3,
+                                   err=0),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -719,10 +1150,22 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     check = KernelCheck()
-    phase_kernels(dev, check)
-    phase_kernel_ops(dev, check)
-    measured = phase_main(dev)
-    measured.update(phase_fig9(dev, check))
+    phases = [
+        ("3", lambda: phase_kernels(dev, check)),
+        ("3d", lambda: phase_kernel_ops(dev, check)),
+        ("4", lambda: measured.update(phase_main(dev))),
+        ("5", lambda: measured.update(phase_fig9(dev, check))),
+        ("6", lambda: serve_launches.update(phase_serve(dev))),
+        ("7", lambda: measured.update(phase_range(dev, check))),
+    ]
+    measured, serve_launches = {}, {}
+    for label, run in phases:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        log(f"phase {label} took {time.perf_counter() - t0:.1f} s")
+    for k, c in serve_launches.items():
+        measured[k]["launches"] += c
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

@@ -7,8 +7,8 @@ batch under different configs give the same results.  The port takes
 callers here.
 
 ``block_q``, ``block_b`` and ``tile_table`` are the TPU kernel's tiling
-knobs.  The CUDA kernel runs one thread block per bucket and reads none of
-them; they are kept so that one config object serves both packages.
+knobs.  The CUDA kernels size their own grids and read none of them; they
+are kept so that one config object serves both packages.
 """
 
 from __future__ import annotations
@@ -72,9 +72,17 @@ class ExecConfig:
     """Execution strategy for one engine call chain.  Frozen + hashable.
 
     ``impl``         — ``"auto" | "fused" | "reference"`` executor choice.
-    ``pipeline``     — ``"auto"`` and ``"off"`` run the one CUDA kernel;
-                       ``"on"`` (the double-buffered variant) raises
-                       ``NotImplementedError`` until it is ported.
+    ``pipeline``     — the fused path's stripe kernel: ``"on"`` the staged
+                       one (``csrc/flix_apply_staged.cu``: persistent blocks,
+                       the next bucket's rows copied in by ``cp.async``
+                       while the current one merges), ``"off"`` the
+                       single-buffer one (a block per bucket), ``"auto"``
+                       what :meth:`resolve_pipeline` fixes for the device.
+                       Both compute the same function; on the CPU both run
+                       the one plain version.  The single-buffer kernel is
+                       the slower one on the card and stays as the
+                       counterpart of the reference's ``_apply_kernel`` and
+                       as a second witness of the staged kernel's function.
     ``donate``       — accepted and ignored: the port never writes its input
                        state, as JAX ignores donation on the CPU.
     ``block_q``/``block_b``/``tile_table`` — TPU tiling knobs, unread by
@@ -107,6 +115,15 @@ class ExecConfig:
 
     def replace(self, **kw) -> "ExecConfig":
         return dataclasses.replace(self, **kw)
+
+    def resolve_pipeline(self, device) -> bool:
+        """Whether the fused path runs the staged stripe kernel.  ``"auto"``
+        follows the reference, which takes the double-buffered kernel on
+        its accelerator: the staged kernel on CUDA.  Fixed in code, with no
+        timing at run time."""
+        if self.pipeline == "auto":
+            return getattr(device, "type", str(device)) == "cuda"
+        return self.pipeline == "on"
 
     def resolve_blocks(
         self, build_size: int, batch_size: int

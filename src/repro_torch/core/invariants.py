@@ -1,5 +1,6 @@
 """Structural invariant checker for FliXState (port of
-``repro/core/invariants.py``, I1–I5 — see ``core/state.py``).
+``repro/core/invariants.py``, I1–I5 — see ``core/state.py`` — and I6, the
+expiry liveness of ``core/expiry.py``).
 
 Host-side numpy.  The reference loops over buckets in Python; this form is
 vectorised over the whole state, so it checks a 2^20-bucket state in
@@ -21,8 +22,13 @@ def _require(ok: np.ndarray, what: str) -> None:
         raise AssertionError(f"{what} at {where}")
 
 
-def check_invariants(st: FliXState) -> None:
-    """Assert I1–I5 hold for ``st``."""
+def check_invariants(st: FliXState, now: int | None = None) -> None:
+    """Assert I1–I6 hold for ``st``.
+
+    I6 applies to a state with an expiry plane: empty slots hold
+    ``NO_EXPIRY``, and — when the caller gives the ``now`` the engine last
+    ran at — no live row holds ``exp <= now``.
+    """
     keys = st.keys.cpu().numpy()
     counts = st.node_count.cpu().numpy()
     nmax = st.node_max.cpu().numpy()
@@ -51,6 +57,23 @@ def check_invariants(st: FliXState) -> None:
     _require(~active | (nmax <= mkba[:, None]), "I3 violated (upper fence)")
     assert (np.diff(mkba.astype(np.int64)) >= 0).all(), "I5 violated"
     assert mkba[-1] == MAX_VALID, "I5 violated: mkba[-1] != MAX_VALID"
+    if st.exps is not None:
+        _check_expiry(keys, st.exps.cpu().numpy(), now)
+
+
+def _check_expiry(keys: np.ndarray, exps: np.ndarray, now: int | None) -> None:
+    """I6 on host arrays of the key and expiry planes."""
+    assert exps.shape == keys.shape, "I6 violated: expiry plane shape"
+    empty = keys == EMPTY
+    _require(~empty | (exps == EMPTY), "I6 violated: an empty slot carries a deadline")
+    if now is not None:
+        leaked = ~empty & (exps <= int(now))
+        if leaked.any():
+            raise AssertionError(
+                "I6 violated: live row(s) past their expiry deadline (keys "
+                f"{keys[leaked][:8].tolist()} expired at {exps[leaked][:8].tolist()} "
+                f"<= now={int(now)})"
+            )
 
 
 def check_range_results(ops, results, *, max_results: int) -> None:

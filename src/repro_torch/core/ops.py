@@ -17,11 +17,17 @@ RANGE reuses the key column for ``lo`` and the val column for ``hi`` and
 answers the half-open ``[lo, hi)``; each batch carries one static
 ``max_results`` output budget.
 
+TTL (``core/expiry.py``): when the state or the batch carries an expiry
+column, ``apply_ops(..., now=)`` first reclaims every row with
+``exp <= now``, lowers ``OP_EXPIRE`` (get-or-set with a deadline) to
+``OP_INSERT``, and runs the executor twice, on the value plane and on the
+expiry plane (``_apply_ops_ttl``).
+
 Two executors sit behind one contract (``ExecConfig.impl``): the plain
 torch *reference* engine, which shares ``insert_with_slices``, ``delete``
 and the ``core.query`` reads, and the *fused* path of
 ``kernels/flix_apply``, one CUDA thread block per bucket.  Precondition: at
-most one update op (INSERT or DELETE) per key per batch.  ``OP_NOP`` slots
+most one update op (INSERT, DELETE or EXPIRE) per key per batch.  ``OP_NOP`` slots
 (key ``EMPTY``) pad a batch to a fixed size.
 """
 
@@ -53,6 +59,7 @@ OP_POINT = 2
 OP_SUCCESSOR = 3
 OP_NOP = 4  # padding slot; key must be EMPTY so it routes past every bucket
 OP_RANGE = 5  # key column = lo, val column = hi; answers [lo, hi)
+OP_EXPIRE = 6  # get-or-set with a deadline (exp column); see _apply_ops_ttl
 
 OP_DTYPE = torch.int32
 
@@ -64,40 +71,49 @@ class OpBatch:
     tag: torch.Tensor  # [N] int32
     key: torch.Tensor  # [N] int32, ascending (EMPTY = NOP padding, at end)
     val: torch.Tensor  # [N] int32 (INSERT: value; RANGE: exclusive hi)
-    # per-op expiry column of the reference's TTL layer; carried only so
-    # that ``apply_ops`` can refuse a TTL batch
-    exp: torch.Tensor | None = None
+    exp: torch.Tensor | None = None  # [N] int32 deadlines, or None (no TTL)
 
     @property
     def size(self) -> int:
         return self.key.shape[0]
 
 
-def make_ops(tags, keys, vals=None, *, pad_to: int | None = None, device=None):
+def make_ops(
+    tags, keys, vals=None, *, exps=None, pad_to: int | None = None, device=None
+):
     """Sort a raw operation list by key into an :class:`OpBatch`.
 
     This is the engine's one global sort.  Returns ``(ops, perm)`` where
     ``perm[j]`` is the sorted position input op ``j`` landed at, so
     :func:`unsort` maps per-op results back to submission order.  The batch
     lives on ``device``: the card unless the caller names another.
+    ``exps`` attaches a per-op deadline column (sorted with the keys, padded
+    with ``NO_EXPIRY``); batches with ``OP_EXPIRE`` or TTL'd inserts need it.
     ``pad_to`` appends ``OP_NOP`` slots up to a fixed size.
     """
+    from repro_torch.core.expiry import NO_EXPIRY
+
     dev = resolve_device(device)
     tags = torch.as_tensor(tags).to(device=dev, dtype=OP_DTYPE)
     keys = torch.as_tensor(keys).to(device=dev, dtype=KEY_DTYPE)
     if vals is None:
         vals = torch.zeros(keys.shape, dtype=VAL_DTYPE, device=dev)
     vals = torch.as_tensor(vals).to(device=dev, dtype=VAL_DTYPE)
+    if exps is not None:
+        exps = torch.as_tensor(exps).to(device=dev, dtype=KEY_DTYPE)
     if pad_to is not None and pad_to > keys.shape[0]:
         extra = pad_to - keys.shape[0]
         tags = torch.cat([tags, tags.new_full((extra,), OP_NOP)])
         keys = torch.cat([keys, keys.new_full((extra,), EMPTY)])
         vals = torch.cat([vals, vals.new_zeros((extra,))])
+        if exps is not None:
+            exps = torch.cat([exps, exps.new_full((extra,), NO_EXPIRY)])
     order = torch.argsort(keys, stable=True)
     # inverse permutation (input position -> sorted position) by O(N) scatter
     perm = torch.empty_like(order)
     perm[order] = torch.arange(order.shape[0], device=dev)
-    return OpBatch(tag=tags[order], key=keys[order], val=vals[order]), perm
+    exp = None if exps is None else exps[order]
+    return OpBatch(tag=tags[order], key=keys[order], val=vals[order], exp=exp), perm
 
 
 def unsort(sorted_result: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -198,6 +214,9 @@ def _apply_ops_reference(
     An absent op class skips its phase (the reference's ``lax.cond``
     becomes a host-side ``if`` on ``bool(mask.any())``).
     """
+    # the update phases construct cache-free states; a batch without updates
+    # returns its input, so drop the cache here as the reference does
+    state = state.drop_volatile()
     dev = state.device
     tag, key, val = ops.tag, ops.key, ops.val
     n = key.shape[0]
@@ -263,14 +282,78 @@ def _apply_ops_plain(state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConf
         return _apply_ops_reference(state, ops, max_results=cfg.max_results)
     if impl != "fused":
         raise ValueError(f"unknown apply_ops impl: {impl!r}")
-    if cfg.pipeline == "on":
-        raise NotImplementedError(
-            "pipeline='on': the double-buffered (cp.async/TMA-staged) flix_apply "
-            "is not ported yet (ROADMAP Queue 2 item 2)"
-        )
     from repro_torch.kernels.flix_apply import flix_apply
 
-    return flix_apply(state, ops.tag, ops.key, ops.val, max_results=cfg.max_results)
+    return flix_apply(
+        state,
+        ops.tag,
+        ops.key,
+        ops.val,
+        max_results=cfg.max_results,
+        staged=cfg.resolve_pipeline(state.device),
+    )
+
+
+def _apply_ops_ttl(
+    state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig, now=None
+):
+    """TTL-aware batch execution over either executor (the reference's
+    ``_apply_ops_ttl``).  Three steps the executors never see:
+
+      1. *Expire pass*: ``expire_state(state, now)`` reclaims every row with
+         ``exp <= now`` (skipped when ``now`` is None).
+      2. *EXPIRE lowering*: OP_EXPIRE ops probe the post-expire pre-update
+         state with one ``successor_query`` (present iff the successor key is
+         the op key, which unlike POINT tells a stored NOT_FOUND value from
+         a miss) and become OP_INSERT: a hit re-puts the *stored* value
+         while the expiry plane takes the op's new deadline, a miss inserts
+         the op's (val, exp).  Sound because update ops are unique per key
+         within a batch.
+      3. *Two-plane execution*: the executor runs on a state whose ``vals``
+         hold the deadlines, then on the value plane.  Every layout decision
+         is a function of keys and tags only, so both land the same key
+         layout and the first run's ``vals`` are the new expiry plane.
+    """
+    from repro_torch.core.expiry import NO_EXPIRY, attach_expiry, expire_state
+
+    state = attach_expiry(state.drop_volatile())
+    tag, key, val = ops.tag, ops.key, ops.val
+    exp = ops.exp if ops.exp is not None else torch.full_like(key, NO_EXPIRY)
+    if now is not None:
+        state, n_expired = expire_state(state, now)
+    else:
+        n_expired = _zero(state.device)
+
+    is_exp = tag == OP_EXPIRE
+    value_state = dataclasses.replace(state, exps=None)
+    exp_state = dataclasses.replace(state, vals=state.exps, exps=None)
+    if bool(is_exp.any()):
+        sk, stored = successor_query(value_state, key)
+        present = is_exp & (sk == key)
+    else:
+        present = torch.zeros_like(is_exp)
+        stored = torch.full_like(key, NOT_FOUND)
+
+    tag2 = torch.where(is_exp, OP_INSERT, tag)
+    val2 = torch.where(present, stored, val)
+    val_e = torch.where(tag2 == OP_INSERT, exp, val)  # RANGE hi rides val in both
+    s2e, _, _ = _apply_ops_plain(
+        exp_state, OpBatch(tag=tag2, key=key, val=val_e), impl=impl, cfg=cfg
+    )
+    s2v, results, stats = _apply_ops_plain(
+        value_state, OpBatch(tag=tag2, key=key, val=val2), impl=impl, cfg=cfg
+    )
+    new_exps = torch.where(s2v.keys == EMPTY, NO_EXPIRY, s2e.vals)
+    del s2e
+    new_state = dataclasses.replace(s2v, exps=new_exps)
+
+    results = dict(results)
+    results["value"] = torch.where(
+        is_exp, torch.where(present, stored, NOT_FOUND), results["value"]
+    )
+    stats = dict(stats)
+    stats["expired"] = n_expired
+    return new_state, results, stats
 
 
 def apply_ops(
@@ -279,6 +362,7 @@ def apply_ops(
     *,
     config: ExecConfig | None = None,
     has_updates: bool | None = None,
+    now=None,
 ):
     """Execute one mixed sorted batch on the state's device.  Returns
     ``(state', results, stats)``.
@@ -299,28 +383,36 @@ def apply_ops(
     plain version on the CPU), or ``"auto"`` — fused on CUDA for batches
     that contain updates, reference otherwise.  ``has_updates`` answers that
     check without a device sync when the caller already knows.
+    ``config.pipeline`` picks the fused path's stripe kernel
+    (:meth:`ExecConfig.resolve_pipeline`).
+
+    ``now`` is the engine's only notion of time: when the state or the
+    batch carries an expiry column, rows with ``exp <= now`` are reclaimed
+    before the update phase and OP_EXPIRE ops run get-or-set against the
+    expired state; ``stats["expired"]`` counts the reclaimed rows.
+    ``now=None`` skips the expire pass (expiry columns are still kept).
 
     On bucket overflow the returned state carries ``needs_restructure`` and
     the overflowing buckets are untrustworthy; hosts use
     :func:`apply_ops_safe`.
     """
     cfg = config if config is not None else ExecConfig()
-    if state.exps is not None or ops.exp is not None:
-        raise NotImplementedError(
-            "TTL state or batch (exps): the expiry layer is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
     impl = cfg.impl
     if impl == "auto":
         if state.device.type != "cuda":
             impl = "reference"
         else:
             if has_updates is None:
-                has_updates = bool(
-                    ((ops.tag == OP_INSERT) | (ops.tag == OP_DELETE)).any()
-                )
+                has_updates = bool(_update_mask(ops.tag).any())
             impl = "fused" if has_updates else "reference"
+    # TTL is structural: an expiry column on the state or on the batch
+    if state.exps is not None or ops.exp is not None:
+        return _apply_ops_ttl(state, ops, impl=impl, cfg=cfg, now=now)
     return _apply_ops_plain(state, ops, impl=impl, cfg=cfg)
+
+
+def _update_mask(tag: torch.Tensor) -> torch.Tensor:
+    return (tag == OP_INSERT) | (tag == OP_DELETE) | (tag == OP_EXPIRE)
 
 
 def apply_ops_safe(
@@ -329,26 +421,30 @@ def apply_ops_safe(
     *,
     config: ExecConfig | None = None,
     has_updates: bool | None = None,
+    now=None,
 ):
     """Host-level loop: apply, restructure-and-retry on overflow.
 
     The retry replays the whole batch on the regrown pre-batch state, which
-    is safe because ``apply_ops`` never writes its input.
+    is safe because ``apply_ops`` never writes its input; OP_EXPIRE counts
+    as an insert when the new geometry is sized.
     ``config.validate_ranges`` runs ``check_range_results`` on the results
-    and ``config.validate`` runs ``check_invariants`` on the result state.
+    and ``config.validate`` runs ``check_invariants`` on the result state,
+    I6 at ``now`` included — except after a batch that wrote rows already
+    past their deadline, which stay live until the next batch's expire pass.
     The returned ``stats`` gains ``restructure_retries`` (host int).
     """
     cfg = config if config is not None else ExecConfig()
     run_cfg = cfg.replace(validate=False, validate_ranges=False)
     restructure_retries = 0
     new_state, results, stats = apply_ops(
-        state, ops, config=run_cfg, has_updates=has_updates
+        state, ops, config=run_cfg, has_updates=has_updates, now=now
     )
     if bool(new_state.needs_restructure) and not bool(state.needs_restructure):
-        n_ins = int((ops.tag == OP_INSERT).sum())
+        n_ins = int(((ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)).sum())
         grown = restructure_grow(state, extra_keys=max(n_ins, 1))
         new_state, results, stats = apply_ops(
-            grown, ops, config=run_cfg, has_updates=has_updates
+            grown, ops, config=run_cfg, has_updates=has_updates, now=now
         )
         if bool(new_state.needs_restructure):
             raise RuntimeError("batch overflowed the geometry restructure_grow planned")
@@ -358,5 +454,10 @@ def apply_ops_safe(
     if cfg.validate_ranges:
         check_range_results(ops, results, max_results=cfg.max_results)
     if cfg.validate:
-        check_invariants(new_state)
+        check_now = now
+        if now is not None and ops.exp is not None:
+            wrote = (ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)
+            if bool((wrote & (ops.exp <= int(now))).any()):
+                check_now = None
+        check_invariants(new_state, now=check_now)
     return new_state, results, stats

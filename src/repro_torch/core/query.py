@@ -8,6 +8,8 @@ path answers the same reads inside ``kernels/flix_apply``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.state import (
@@ -85,18 +87,33 @@ def _successor_fence_rows(keys: torch.Tensor, num_nodes: torch.Tensor):
     return smin_pad, sidx_pad
 
 
+def with_successor_cache(state: FliXState) -> FliXState:
+    """``state`` carrying the successor fence rows (``succ_smin`` /
+    ``succ_sidx``), so that every later :func:`successor_query` on it skips
+    their O(nb) rebuild.  Mutating operations construct their result state
+    without the cache, which is the invalidation rule.  Idempotent."""
+    if state.succ_smin is not None:
+        return state
+    smin_pad, sidx_pad = _successor_fence_rows(state.keys, state.num_nodes)
+    return dataclasses.replace(state, succ_smin=smin_pad, succ_sidx=sidx_pad)
+
+
 def successor_query(state: FliXState, sorted_queries: torch.Tensor):
     """Smallest stored key ≥ q (and its value); (EMPTY, NOT_FOUND) if none.
 
     In-bucket path: compare-count as in point queries.  Out-of-bucket path
     (bucket's largest present key < q): the suffix-min fence rows give the
-    next non-empty bucket in O(1) per query.
+    next non-empty bucket in O(1) per query; a state carrying the
+    :func:`with_successor_cache` rows reads them instead of rebuilding them.
     """
     q = sorted_queries.to(torch.int32)
     b, nidx_c, pos_c, in_key, in_bucket, pos = _locate(state, q)
     in_val = state.vals[b, nidx_c, pos_c]
 
-    smin_pad, sidx_pad = _successor_fence_rows(state.keys, state.num_nodes)
+    if state.succ_smin is not None:
+        smin_pad, sidx_pad = state.succ_smin, state.succ_sidx
+    else:
+        smin_pad, sidx_pad = _successor_fence_rows(state.keys, state.num_nodes)
     out_key = smin_pad[b + 1]
     out_val = state.vals[sidx_pad[b + 1], 0, 0]
 
@@ -135,6 +152,53 @@ def flat_rank(
         p = (flat_k[bc] < qc[:, None]).sum(dim=1, dtype=torch.int32)
         out[c0 : c0 + step] = pref[bc] + p
     return out
+
+
+def live_prefix(node_count: torch.Tensor) -> torch.Tensor:
+    """Live-count prefix ``pref`` [nb+1] from the node counts: ``pref[b]`` is
+    the global rank of bucket ``b``'s first key."""
+    live = node_count.sum(1, dtype=torch.int32)
+    return torch.cat([live.new_zeros((1,)), torch.cumsum(live, 0, dtype=torch.int32)])
+
+
+def node_rank(keys, node_count, node_max, mkba, pref, q: torch.Tensor) -> torch.Tensor:
+    """Global rank (stored keys < q) per query in a state that holds I1–I4,
+    with no per-bucket sort: the owning bucket's rank fence ``pref[b]``,
+    plus the keys of its nodes wholly below q, plus q's position in the
+    first node that reaches it (keys are packed at the front of each node
+    and chain-ordered, so that is a prefix count of the row).  Equal to
+    :func:`flat_rank` on the sorted rows."""
+    npb = keys.shape[1]
+    q = q.to(torch.int32)
+    b = torch.clamp(torch.searchsorted(mkba, q, out_int32=True), max=keys.shape[0] - 1)
+    below = node_max[b] < q[:, None]
+    before = (node_count[b] * below).sum(1, dtype=torch.int32)
+    nidx = below.sum(1, dtype=torch.int32)
+    row = keys[b, torch.clamp(nidx, max=npb - 1)]
+    pos = (row < q[:, None]).sum(1, dtype=torch.int32)
+    pos = torch.where(nidx < npb, pos, 0)
+    return pref[b] + before + pos
+
+
+def gather_ranks(g, pref, node_count, keys, vals):
+    """The (key, val) of global rank ``g[p]`` per slot, EMPTY / NOT_FOUND
+    where ``g[p] < 0``: the owning bucket by ``pref``, then the node by the
+    running node counts, then the position in the node."""
+    nb, npb, ns = keys.shape
+    valid = g >= 0
+    gc = torch.where(valid, g, 0)
+    b = torch.searchsorted(pref, gc, right=True, out_int32=True) - 1
+    b = torch.clamp(b, 0, nb - 1)
+    r = gc - pref[b]
+    cnt = node_count[b]  # [P, npb]
+    incl = torch.cumsum(cnt, 1, dtype=torch.int32)
+    node = torch.clamp((incl <= r[:, None]).sum(1), max=npb - 1)[:, None]
+    before = (incl.gather(1, node) - cnt.gather(1, node))[:, 0]
+    pos = torch.clamp(r - before, 0, ns - 1)
+    node = node[:, 0]
+    rk = torch.where(valid, keys[b, node, pos], EMPTY)
+    rv = torch.where(valid, vals[b, node, pos], NOT_FOUND)
+    return rk, rv
 
 
 def range_offsets(full: torch.Tensor, is_range: torch.Tensor, max_results: int):
@@ -209,4 +273,37 @@ def dense_range_scan(
         torch.where(is_range, start, 0),
         torch.where(is_range, emit, 0),
         truncated,
+    )
+
+
+def range_query(
+    state: FliXState, lo: torch.Tensor, hi: torch.Tensor, *, max_results: int = 128
+):
+    """Keys/vals in the inclusive ``[lo, hi]`` per query pair, padded to
+    ``max_results`` per query.  Returns ``(keys [Q, max_results], vals,
+    counts [Q])``; slots past a query's count hold EMPTY / NOT_FOUND.
+
+    A walk from the global rank of ``lo``: bucket order is key order
+    (I2/I3), so ``node_rank`` gives that rank from the node counts, and
+    each following rank maps back to (bucket, node, position) by
+    ``gather_ranks`` — no per-bucket sort and no global argsort.
+    """
+    lo = lo.to(torch.int32)
+    hi = hi.to(torch.int32)
+    pref = live_prefix(state.node_count)
+    total = pref[-1]
+    meta = (state.keys, state.node_count, state.node_max, state.mkba, pref)
+    rank0 = node_rank(*meta, lo)
+    step = torch.arange(max_results, dtype=torch.int32, device=lo.device)
+    ranks = rank0[:, None] + step[None, :]
+    in_range = ranks < total
+    g = torch.where(in_range, ranks, -1).reshape(-1)
+    rk, rv = gather_ranks(g, pref, state.node_count, state.keys, state.vals)
+    rk = rk.reshape(ranks.shape)
+    rv = rv.reshape(ranks.shape)
+    valid = in_range & (rk <= hi[:, None]) & (rk != EMPTY)
+    return (
+        torch.where(valid, rk, EMPTY),
+        torch.where(valid, rv, NOT_FOUND),
+        valid.sum(1, dtype=torch.int32),
     )

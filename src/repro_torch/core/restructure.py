@@ -7,12 +7,13 @@ build.  The host only chooses the new static geometry.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.core.build import build_from_sorted, plan_geometry
-from repro_torch.core.state import FliXState
+from repro_torch.core.state import EMPTY, FliXState
 
 
 def restructure(
@@ -23,25 +24,29 @@ def restructure(
     node_size: int | None = None,
     fill: float = 0.5,
 ) -> FliXState:
-    """Rebuild into the given geometry from the current live contents."""
-    if state.exps is not None:
-        raise NotImplementedError(
-            "restructure of a TTL state: the expiry plane is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+    """Rebuild into the given geometry from the current live contents.
+
+    An expiry plane comes along: the same build with the deadlines in the
+    value slot lands the same layout, since build positions depend on keys
+    only.  The successor cache does not (a new state, a new cache).
+    """
     npb = nodes_per_bucket or state.nodes_per_bucket
     ns = node_size or state.node_size
     flat_k = state.keys.reshape(-1)
     flat_v = state.vals.reshape(-1)
     order = torch.argsort(flat_k, stable=True)  # EMPTY sentinels sort last
-    return build_from_sorted(
-        flat_k[order],
-        flat_v[order],
-        num_buckets=num_buckets,
-        nodes_per_bucket=npb,
-        node_size=ns,
-        fill=fill,
+    sorted_k = flat_k[order]
+    geometry = dict(
+        num_buckets=num_buckets, nodes_per_bucket=npb, node_size=ns, fill=fill
     )
+    built = build_from_sorted(sorted_k, flat_v[order], **geometry)
+    if state.exps is None:
+        return built
+    from repro_torch.core.expiry import NO_EXPIRY
+
+    built_e = build_from_sorted(sorted_k, state.exps.reshape(-1)[order], **geometry)
+    exps = torch.where(built.keys == EMPTY, NO_EXPIRY, built_e.vals)
+    return dataclasses.replace(built, exps=exps)
 
 
 def plan(state: FliXState, *, extra_keys: int = 0, fill: float = 0.5):

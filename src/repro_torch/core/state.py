@@ -11,6 +11,9 @@ Invariants (``core/invariants.py`` checks them):
   I4. ``node_max[b, j]`` equals the largest key of node ``j`` (``EMPTY`` when
       the slot is inactive), so each ``node_max[b]`` row is ascending.
   I5. ``mkba`` is strictly ascending with ``mkba[-1] == MAX_VALID``.
+
+I6 (expiry liveness) lives in ``core/expiry.py`` and is checked with the
+others when the state carries an expiry plane.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ MAX_VALID = EMPTY - 1  # largest storable key
 MIN_KEY = -(2**31)  # conceptual lower fence
 NOT_FOUND = -1  # point-query miss sentinel
 
-# the carry-over fields: what ``state_to_numpy``/``state_from_numpy`` move
+# the carry-over fields every state has: what ``state_to_numpy`` /
+# ``state_from_numpy`` always move
 STATE_FIELDS = (
     "keys",
     "vals",
@@ -38,6 +42,8 @@ STATE_FIELDS = (
     "mkba",
     "needs_restructure",
 )
+# the optional fields, moved when a state (or the host dict) carries them
+OPTIONAL_FIELDS = ("succ_smin", "succ_sidx", "exps")
 
 # elements per bucket chunk in the batched plain-torch passes: bounds their
 # temporaries (int64 sort indices included) at a few hundred MB whatever nb is
@@ -74,9 +80,26 @@ class FliXState:
     num_nodes: torch.Tensor  # [nb] active slots per bucket
     mkba: torch.Tensor  # [nb] max allowable key per bucket
     needs_restructure: torch.Tensor  # [] bool, bucket overflow pressure flag
-    # per-key expiry column of the reference's TTL layer; the port carries
-    # the field only so that ``apply_ops`` can refuse a TTL state
-    exps: torch.Tensor | None = None
+
+    # Optional successor-fallback cache (``core.query.with_successor_cache``):
+    # the padded suffix-min rows over per-bucket minimum present keys, [nb+1]
+    # each.  Every mutating operation constructs its result without them, so
+    # the cache is invalidated by construction; only read-only query streams
+    # carry it forward.
+    succ_smin: torch.Tensor | None = None
+    succ_sidx: torch.Tensor | None = None
+
+    # Optional per-key expiry plane (``core.expiry``): absolute deadlines in
+    # the virtual time of the ``now`` threaded through ``apply_ops``,
+    # ``NO_EXPIRY`` (== EMPTY) at empty slots and for keys without a TTL.
+    # Durable logical state: ``drop_volatile`` keeps it.
+    exps: torch.Tensor | None = None  # [nb, npb, ns] int32 or None
+
+    def drop_volatile(self) -> "FliXState":
+        """This state without its volatile successor-cache fields."""
+        if self.succ_smin is None and self.succ_sidx is None:
+            return self
+        return dataclasses.replace(self, succ_smin=None, succ_sidx=None)
 
     @property
     def device(self) -> torch.device:
@@ -125,16 +148,25 @@ class FliXState:
 
 
 def state_to_numpy(state: FliXState) -> dict:
-    """The seven carry-over fields as host numpy arrays."""
-    return {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+    """The seven carry-over fields as host numpy arrays, plus the expiry
+    plane and the successor cache when the state carries them."""
+    out = {f: getattr(state, f).cpu().numpy() for f in STATE_FIELDS}
+    for f in OPTIONAL_FIELDS:
+        if getattr(state, f) is not None:
+            out[f] = getattr(state, f).cpu().numpy()
+    return out
 
 
 def state_from_numpy(arrays: dict, device) -> FliXState:
     """Build a state from host arrays of the seven carry-over fields — e.g.
-    ``np.asarray`` of each field of the JAX reference's state."""
+    ``np.asarray`` of each field of the JAX reference's state — and of the
+    optional ones (``exps``, ``succ_smin``, ``succ_sidx``) where the dict
+    holds them and they are not None."""
     dev = resolve_device(device)
     out = {}
-    for f in STATE_FIELDS:
+    for f in STATE_FIELDS + OPTIONAL_FIELDS:
+        if f not in STATE_FIELDS and arrays.get(f) is None:
+            continue
         a = np.asarray(arrays[f])
         a = a.astype(bool) if f == "needs_restructure" else a.astype(np.int32)
         out[f] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -52,7 +52,7 @@ __global__ void flix_delete_kernel(const int* __restrict__ keys,
   }
   load_stripe(s, keys, vals, nullptr, b, npb, ns);  // its barriers publish the slice
   mark_deletes(s, s.A, del_keys + s.Scalar[4], s.Scalar[5], S);
-  compact_phase(s, s.A, s.Av, s.M, s.Mv, npb, ns);
+  compact_phase(s, s.A, s.Av, s.M, s.Mv, npb, ns, S);
   write_stripe(s, s.M, s.Mv, keys_out, vals_out, count_out, max_out, nn_out, b, npb, ns);
 }
 

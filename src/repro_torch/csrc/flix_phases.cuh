@@ -125,13 +125,38 @@ __device__ __forceinline__ WarpLocated warp_locate(const int* keys_b, const int*
 // In-place exclusive scan of x[0, n) by the whole block; x[n] receives the
 // total.  blockDim.x must be a multiple of 32; warp_buf holds 32 ints.
 // Each thread scans one contiguous chunk, so any n works with any block.
+// Up to kWarpScan entries the first warp scans alone, behind one barrier
+// instead of three.
+constexpr int kWarpScan = 128;
 __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
   const int T = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  if (n <= kWarpScan) {
+    if (warp == 0) {
+      const int per = (n + 31) / 32;
+      const int lo = min(lane * per, n), hi = min(lo + per, n);
+      int local = 0;
+      for (int i = lo; i < hi; ++i) local += x[i];
+      int v = local;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, v, d);
+        if (lane >= d) v += y;
+      }
+      int run = v - local;
+      for (int i = lo; i < hi; ++i) {
+        const int c = x[i];
+        x[i] = run;
+        run += c;
+      }
+      if (lane == 31) x[n] = v;
+    }
+    __syncthreads();
+    return;
+  }
   const int per = (n + T - 1) / T;
   const int lo = min(t * per, n), hi = min(lo + per, n);
   int local = 0;
   for (int i = lo; i < hi; ++i) local += x[i];
-  const int lane = t & 31, warp = t >> 5;
   int v = local;
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(kFull, v, d);
@@ -251,10 +276,15 @@ __device__ inline Stripe carve_delete(int* smem, int npb, int ns) {
 }
 
 // Threads per stripe block: one per slot up to 256.
+constexpr int kStripeThreads = 256;
 inline int stripe_threads(int S) {
   const int t = ((S + 31) / 32) * 32;
-  return t < 256 ? t : 256;
+  return t < kStripeThreads ? t : kStripeThreads;
 }
+
+// Resident stripe blocks an SM should hold: with 256 threads that caps a
+// fused stripe kernel at 32 registers a thread (__launch_bounds__).
+constexpr int kStripeBlocksPerSm = 8;
 
 // Load bucket b's stripe into A/Av and clear the merged stripe M/Mv.  With
 // node_max given, also load Nmax, clear Mj and count the active nodes into
@@ -299,14 +329,16 @@ __device__ inline void load_insert_slice(const Stripe& s, const int* __restrict_
 // Upsert merge of the insert slice B[0, m) into the stripe A: stripe keys
 // that reappear in B are dropped (the incoming value wins), each original
 // node region is re-chunked into balanced pieces, and the result lands in
-// M/Mv (EMPTY / 0 elsewhere).  Scalar[1] receives the number of pieces:
-// more than npb means the bucket overflowed and the pieces past the last
-// slot were dropped.  Ends with a barrier.
+// M/Mv (EMPTY / 0 elsewhere).  Only the first Scalar[0] rows of A (the
+// active nodes, packed first: I3/I4) are read.  Scalar[1] receives the
+// number of pieces: more than npb means the bucket overflowed and the
+// pieces past the last slot were dropped.  Ends with a barrier.
 __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
   const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const int L = s.Scalar[0] * ns;  // the slots of A that may hold keys
 
   // stripe keys not upserted, ranked by a block scan
-  for (int i = t; i < S; i += T) {
+  for (int i = t; i < L; i += T) {
     const int a = s.A[i];
     int keep = 0;
     if (a != kEmpty) {
@@ -316,11 +348,11 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
     s.X[i] = keep;
   }
   __syncthreads();
-  block_exclusive_scan(s.X, S, s.Warp);  // X[i] = kept keys before slot i
-  const int nK = s.X[S];
+  block_exclusive_scan(s.X, L, s.Warp);  // X[i] = kept keys before slot i
+  const int nK = s.X[L];
   const int onn_c = max(s.Scalar[0] - 1, 0);
 
-  for (int i = t; i < S; i += T) {
+  for (int i = t; i < L; i += T) {
     if (s.X[i + 1] != s.X[i]) {
       const int a = s.A[i];
       s.K[s.X[i]] = a;
@@ -330,9 +362,9 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
   for (int j = t; j < m; j += T) atomicAdd(&s.Mj[region_of(s.Nmax, npb, onn_c, s.B[j])], 1);
   __syncthreads();
 
-  if (t == 0) {
+  if (t == 0) {  // regions past onn_c receive no key
     int f = 0, slot = 0;
-    for (int j = 0; j < npb; ++j) {
+    for (int j = 0; j <= onn_c; ++j) {
       const int mj = s.Mj[j];
       const int sj = (mj + ns - 1) / ns;
       s.Sj[j] = sj;
@@ -345,7 +377,7 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
   }
   __syncthreads();
 
-  for (int i = t; i < S; i += T) {
+  for (int i = t; i < L; i += T) {
     if (s.X[i + 1] != s.X[i]) {
       const int a = s.A[i];
       const int rank = s.X[i] + lower_bound(s.B, m, a);
@@ -370,12 +402,19 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
   __syncthreads();
 }
 
-// Mark the stored keys of src[0, S) that the delete slice dk[0, dn)
-// (ascending) holds: X[i] = 1 for a survivor, 0 for a hit or an EMPTY
-// slot; Scalar[2] counts the hits.  Ends with a barrier.
+// The slots of the merged stripe M that may hold keys: its pieces, cut at
+// the npb node slots.
+__device__ __forceinline__ int merged_slots(const Stripe& s, int npb, int ns) {
+  return min(s.Scalar[1], npb) * ns;
+}
+
+// Mark the stored keys of src[0, L) (the slots that may hold keys, a whole
+// number of rows) that the delete slice dk[0, dn) (ascending) holds:
+// X[i] = 1 for a survivor, 0 for a hit or an EMPTY slot; Scalar[2] counts
+// the hits.  Ends with a barrier.
 __device__ inline void mark_deletes(const Stripe& s, const int* src, const int* dk, int dn,
-                                    int S) {
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+                                    int L) {
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
     const int k = src[i];
     int keep = 0;
     if (k != kEmpty) {
@@ -389,18 +428,18 @@ __device__ inline void mark_deletes(const Stripe& s, const int* src, const int* 
   __syncthreads();
 }
 
-// In-node and chain compaction of src/srcv by the survivor flags in X:
-// survivors shift left inside their node, emptied nodes drop out of the
-// chain, and the result lands in dst/dstv (EMPTY / 0 elsewhere).  Cnt
-// receives the output node counts and Scalar[3] the output num_nodes.
-// Ends with a barrier.
+// In-node and chain compaction of src/srcv by the survivor flags in
+// X[0, L) (mark_deletes' L; the rows past it hold no key): survivors shift
+// left inside their node, emptied nodes drop out of the chain, and the
+// result lands in dst/dstv (EMPTY / 0 elsewhere).  Cnt receives the output
+// node counts and Scalar[3] the output num_nodes.  Ends with a barrier.
 __device__ inline void compact_phase(const Stripe& s, const int* src, const int* srcv,
-                                     int* dst, int* dstv, int npb, int ns) {
+                                     int* dst, int* dstv, int npb, int ns, int L) {
   const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  block_exclusive_scan(s.X, S, s.Warp);  // survivors before each slot
+  block_exclusive_scan(s.X, L, s.Warp);  // survivors before each slot
   if (t == 0) {
     int slot = 0;
-    for (int j = 0; j < npb; ++j) {
+    for (int j = 0; j < L / ns; ++j) {
       const int c = s.X[(j + 1) * ns] - s.X[j * ns];
       s.Slot[j] = slot;
       if (c > 0) s.Cnt[slot++] = c;  // non-empty nodes keep chain order
@@ -413,7 +452,7 @@ __device__ inline void compact_phase(const Stripe& s, const int* src, const int*
     dstv[i] = 0;
   }
   __syncthreads();
-  for (int i = t; i < S; i += T) {
+  for (int i = t; i < L; i += T) {
     if (s.X[i + 1] != s.X[i]) {
       const int j = i / ns;
       const int d = s.Slot[j] * ns + (s.X[i] - s.X[j * ns]);
@@ -478,6 +517,128 @@ __device__ __forceinline__ Located locate(const int* keys, const int* nmax, int 
   l.raw_pos = lower_bound(keys + l.node * ns, ns, q);
   l.pos = min(l.raw_pos, ns - 1);
   return l;
+}
+
+// ---------------------------------------------------------------------------
+// the fused mixed-batch pass of one bucket (flix_apply's stripe kernels)
+// ---------------------------------------------------------------------------
+
+// Inputs and outputs of a fused stripe pass: the pre-batch planes, the
+// compacted insert and delete keys with their per-bucket slices, the sorted
+// batch with its per-bucket op slices, and the per-bucket and per-op outputs.
+struct ApplyArgs {
+  const int* __restrict__ keys;
+  const int* __restrict__ vals;
+  const int* __restrict__ node_max;
+  const int* __restrict__ ins_keys;
+  const int* __restrict__ ins_vals;
+  const int* __restrict__ ins_starts;
+  const int* __restrict__ ins_ends;
+  const int* __restrict__ del_keys;
+  const int* __restrict__ del_starts;
+  const int* __restrict__ del_ends;
+  const int* __restrict__ op_tag;
+  const int* __restrict__ op_key;
+  const int* __restrict__ op_starts;
+  const int* __restrict__ op_ends;
+  int* __restrict__ keys_out;
+  int* __restrict__ vals_out;
+  int* __restrict__ count_out;
+  int* __restrict__ max_out;
+  int* __restrict__ nn_out;
+  int* __restrict__ flow_out;
+  int* __restrict__ del_out;
+  int* __restrict__ value_out;
+  int* __restrict__ succ_out;
+};
+
+// Per-bucket slice bounds of a fused pass: [start, end) of the bucket's
+// inserts, deletes and ops in the compacted and sorted batch columns.
+struct Slices {
+  int ins_start, ins_end, del_start, del_end, op_start, op_end;
+};
+
+// The write-back of a bucket with no insert and no delete in the batch.  In
+// a state that holds I1-I4 the merge would re-chunk every active row into
+// itself and the compaction keep it, so the stripe goes back as it is: its
+// active rows (s.A/s.Av, the first Scalar[0] rows), EMPTY / 0 past them and
+// 0 for the vals of EMPTY slots (as the compaction writes them), the node
+// counts (keys are packed at the front of a row), the node max row, and
+// Scalar[3] = the active node count.  Ends with a barrier.
+__device__ inline void keep_stripe(const Stripe& s, int* __restrict__ keys_out,
+                                   int* __restrict__ vals_out, int* __restrict__ count_out,
+                                   int* __restrict__ max_out, int* __restrict__ nn_out, int b,
+                                   int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const int nn = s.Scalar[0], L = nn * ns;
+  const size_t base = (size_t)b * S, mbase = (size_t)b * npb;
+  for (int i = t; i < S; i += T) {
+    const int k = i < L ? s.A[i] : kEmpty;
+    keys_out[base + i] = k;
+    vals_out[base + i] = k != kEmpty ? s.Av[i] : 0;
+  }
+  for (int j = t; j < npb; j += T) {
+    count_out[mbase + j] = j < nn ? lower_bound(s.A + j * ns, ns, kEmpty) : 0;
+    max_out[mbase + j] = s.Nmax[j];
+  }
+  if (t == 0) {
+    nn_out[b] = nn;
+    s.Scalar[3] = nn;
+  }
+  __syncthreads();
+}
+
+// The fused pass of bucket b, whose active rows are loaded in s.A/s.Av, its
+// node max row in s.Nmax, the active node count in Scalar[0], Scalar[1..3]
+// and s.Mj zeroed and s.M/s.Mv cleared (load_stripe does all of that): merge
+// the insert slice (cut at cap = S), delete, write the post-update stripe
+// and its metadata, then answer the bucket's POINT ops and in-bucket
+// SUCCESSOR candidates against it.  A bucket with no insert and no delete
+// in the batch skips the merge and the compaction (keep_stripe).  Each op
+// belongs to at most one bucket,
+// so the per-op writes never race.  SUCCESSOR ops with no in-bucket
+// candidate keep (EMPTY, NOT_FOUND); the wrapper resolves them from the
+// post-update fence rows.
+__device__ inline void apply_bucket(const Stripe& s, const ApplyArgs& a, const Slices& sl,
+                                    int b, int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const int m = min(max(sl.ins_end - sl.ins_start, 0), S);
+  const int dn = max(sl.del_end - sl.del_start, 0);
+  if (m == 0 && dn == 0) {
+    keep_stripe(s, a.keys_out, a.vals_out, a.count_out, a.max_out, a.nn_out, b, npb, ns);
+    if (t == 0) {
+      a.flow_out[b] = 0;
+      a.del_out[b] = 0;
+    }
+  } else {
+    load_insert_slice(s, a.ins_keys + sl.ins_start, a.ins_vals + sl.ins_start, m);
+    merge_phase(s, m, npb, ns);
+    const int L = merged_slots(s, npb, ns);
+    mark_deletes(s, s.M, a.del_keys + sl.del_start, dn, L);
+    compact_phase(s, s.M, s.Mv, s.A, s.Av, npb, ns, L);
+    write_stripe(s, s.A, s.Av, a.keys_out, a.vals_out, a.count_out, a.max_out, a.nn_out, b,
+                 npb, ns);
+    if (t == 0) {
+      a.flow_out[b] = s.Scalar[1] > npb;
+      a.del_out[b] = s.Scalar[2];
+    }
+  }
+
+  const int nn = s.Scalar[3];
+  for (int i = sl.op_start + t; i < sl.op_end; i += T) {
+    const int tg = a.op_tag[i];
+    if (tg != kOpPoint && tg != kOpSuccessor) continue;
+    const int q = a.op_key[i];
+    const Located l = locate(s.A, s.Nmax, nn, npb, ns, q);
+    const int at = l.node * ns + l.pos;
+    const bool use_in = l.in_bucket && l.raw_pos < ns;
+    if (tg == kOpPoint) {
+      a.value_out[i] = use_in && s.A[at] == q ? s.Av[at] : kMiss;
+    } else if (use_in) {
+      a.succ_out[i] = s.A[at];
+      a.value_out[i] = s.Av[at];
+    }
+  }
 }
 
 }  // namespace flix

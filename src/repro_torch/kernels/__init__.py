@@ -4,8 +4,12 @@ ops             — the kernel entry points on a state, with the reference's
                   signatures: ``mode="auto"`` runs the kernel (its plain
                   version on a CPU state), ``mode="ref"`` the core function
 flix_apply      — fused mixed-batch apply: merge + delete + post-update reads
-                  in one thread block per bucket, plus the dense RANGE gather
-                  (``csrc/flix_apply.cu``)
+                  in one thread block per bucket (``csrc/flix_apply.cu``) or
+                  in persistent blocks with cp.async-staged stripes
+                  (``csrc/flix_apply_staged.cu``), plus the dense RANGE
+                  gather
+flix_range      — standalone dense RANGE scans: a count kernel and the
+                  gather as the scatter (``csrc/flix_range.cu``)
 flix_query      — flipped point queries, one warp per bucket
                   (``csrc/flix_query.cu``)
 flix_successor  — flipped successor queries with the suffix-min fence rows

@@ -18,11 +18,14 @@ from repro_torch.kernels._build import load_library
 # its main path went through the kernels.  Only :func:`launch` adds to them.
 LAUNCHES = {
     "flix_apply": 0,
+    "flix_apply_staged": 0,
     "flix_apply_range": 0,
     "flix_point_query": 0,
     "flix_successor": 0,
     "flix_insert": 0,
     "flix_delete": 0,
+    "flix_range_count": 0,
+    "flix_range_scatter": 0,
 }
 
 

@@ -1,13 +1,22 @@
 """Fused compute-to-bucket apply (port of ``repro/kernels/flix_apply.py``).
 
-One CUDA thread block per bucket does all of a bucket's work in one visit
-(the paper's flipped indexing, §4.1): it pulls its slices of the sorted
-batch, upsert-merges the inserts with original-node-region re-chunking,
-deletes with in-node and chain compaction, writes the new stripe and its
-metadata, and answers the bucket's POINT ops and in-bucket SUCCESSOR
-candidates against the post-update stripe in shared memory
-(``csrc/flix_apply.cu``).  A second launch fills the dense RANGE output,
-one thread per slot.
+A CUDA thread block does all of a bucket's work in one visit (the paper's
+flipped indexing, §4.1): it pulls its slices of the sorted batch,
+upsert-merges the inserts with original-node-region re-chunking, deletes
+with in-node and chain compaction, writes the new stripe and its metadata,
+and answers the bucket's POINT ops and in-bucket SUCCESSOR candidates
+against the post-update stripe in shared memory.  Two stripe kernels
+compute that one function:
+
+  * ``csrc/flix_apply.cu`` (``pipeline="off"``): one block per bucket, the
+    whole stripe copied in;
+  * ``csrc/flix_apply_staged.cu`` (``pipeline="on"``, the counterpart of
+    the TPU's double-buffered ``_apply_kernel_pipelined``): persistent
+    blocks walk many buckets, and while one bucket is merged, ``cp.async``
+    copies the next bucket's rows that hold keys into a second buffer.
+
+A second launch fills the dense RANGE output, one thread per slot (the
+gather of ``csrc/flix_range.cu``, shared with ``kernels/flix_range``).
 
 Host side (:func:`flix_apply`, the port of ``_fused_apply``): the single
 routing (``core.ops.route``), then the stripe pass, then two small steps
@@ -43,12 +52,15 @@ from repro_torch.core.ops import OP_POINT, OP_RANGE, OP_SUCCESSOR, route
 from repro_torch.core.query import (
     _bucket_index,
     _successor_fence_rows,
+    live_prefix,
+    node_rank,
     range_offsets,
     range_slot_ranks,
 )
 from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
 from repro_torch.kernels._launch import check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
+from repro_torch.kernels.flix_range import range_gather
 
 # the stripe pass's inputs, in the order of the C entry point
 _PASS_INPUTS = (
@@ -124,9 +136,6 @@ def flix_apply_pass(
     value, succ_key)``; SUCCESSOR ops with no in-bucket successor come back
     as (NOT_FOUND, EMPTY).
     """
-    nb, npb, ns = keys.shape
-    n = key.shape[0]
-    dev = keys.device
     args = (
         keys,
         vals,
@@ -143,10 +152,34 @@ def flix_apply_pass(
         op_starts,
         op_ends,
     )
+    return _stripe_pass(args)
+
+
+def flix_apply_staged_pass(num_nodes, *args):
+    """The stripe pass by the staged kernel (``csrc/flix_apply_staged.cu``):
+    the same function as :func:`flix_apply_pass` on the same ``args``, with
+    the state's ``num_nodes`` [nb] telling it which rows hold keys (I3/I4
+    pack the active nodes first), so that only those rows are read.  Its
+    plain version is :func:`flix_apply_reference`, which runs on the CPU."""
+    nb = args[0].shape[0]
+    check(args[0].device, ("num_nodes",), (num_nodes,))
+    if num_nodes.shape != (nb,):
+        raise ValueError(f"num_nodes must have shape ({nb},)")
+    return _stripe_pass(args, num_nodes=num_nodes)
+
+
+def _stripe_pass(args, *, num_nodes=None):
+    """Check the stripe pass's inputs, then run the plain version (CPU), the
+    single-buffer kernel, or (given ``num_nodes``) the staged kernel."""
+    keys, vals, node_max, ins_keys, ins_vals = args[:5]
+    tag, key = args[10:12]
+    nb, npb, ns = keys.shape
+    n = key.shape[0]
+    dev = keys.device
     check(dev, _PASS_INPUTS, args)
     if vals.shape != keys.shape or node_max.shape != (nb, npb):
         raise ValueError("keys, vals and node_max disagree in geometry")
-    bounds = (ins_starts, ins_ends, del_starts, del_ends, op_starts, op_ends)
+    bounds = (args[5], args[6], args[8], args[9], args[12], args[13])
     if any(t.shape != (nb,) for t in bounds):
         raise ValueError(f"per-bucket slice bounds must have shape ({nb},)")
     if ins_vals.shape != ins_keys.shape or tag.shape != key.shape:
@@ -154,7 +187,9 @@ def flix_apply_pass(
     if dev.type == "cpu":
         return flix_apply_reference(*args)
 
-    check_smem("flix_apply", "flix_apply_smem_bytes", npb, ns, dev)
+    staged = num_nodes is not None
+    kernel = "flix_apply_staged" if staged else "flix_apply"
+    check_smem(kernel, f"{kernel}_smem_bytes", npb, ns, dev)
     outs = (
         torch.empty_like(keys),
         torch.empty_like(vals),
@@ -166,7 +201,8 @@ def flix_apply_pass(
         torch.full((n,), NOT_FOUND, dtype=torch.int32, device=dev),
         torch.full((n,), EMPTY, dtype=torch.int32, device=dev),
     )
-    launch("flix_apply", "flix_apply_launch", dev, *args, *outs, nb, npb, ns)
+    extra = (num_nodes,) if staged else ()
+    launch(kernel, f"{kernel}_launch", dev, *args, *extra, *outs, nb, npb, ns)
     return outs
 
 
@@ -261,75 +297,17 @@ def flix_apply_reference(
 
 
 def flix_apply_range_pass(g, pref, node_count, keys, vals):
-    """Dense RANGE output: slot p holds the key of global post-update rank
-    ``g[p]`` (EMPTY / NOT_FOUND where ``g[p] < 0``).  The CUDA kernel on the
-    card, :func:`flix_apply_range_reference` on the CPU."""
-    nb, npb, ns = keys.shape
-    dev = keys.device
-    args = (g, pref, node_count, keys, vals)
-    check(dev, ("g", "pref", "node_count", "keys", "vals"), args)
-    if pref.shape != (nb + 1,) or node_count.shape != (nb, npb):
-        raise ValueError("range gather: pref or node_count disagrees with keys")
-    if vals.shape != keys.shape:
-        raise ValueError("range gather: vals disagree with keys")
-    if dev.type == "cpu":
-        return flix_apply_range_reference(*args)
-
-    mr = g.shape[0]
-    rk = torch.empty((mr,), dtype=torch.int32, device=dev)
-    rv = torch.empty((mr,), dtype=torch.int32, device=dev)
-    launch(
-        "flix_apply_range",
-        "flix_range_gather_launch",
-        dev,
-        *args,
-        rk,
-        rv,
-        mr,
-        nb,
-        npb,
-        ns,
-    )
-    return rk, rv
-
-
-def flix_apply_range_reference(g, pref, node_count, keys, vals):
-    """Plain torch version of the RANGE gather (same inputs and outputs)."""
-    nb, npb, ns = keys.shape
-    valid = g >= 0
-    gc = torch.where(valid, g, 0)
-    b = torch.searchsorted(pref, gc, right=True, out_int32=True) - 1
-    b = torch.clamp(b, 0, nb - 1)
-    r = gc - pref[b]
-    cnt = node_count[b]  # [MR, npb]
-    incl = torch.cumsum(cnt, 1, dtype=torch.int32)
-    node = torch.clamp((incl <= r[:, None]).sum(1), max=npb - 1)[:, None]
-    before = (incl.gather(1, node) - cnt.gather(1, node))[:, 0]
-    pos = torch.clamp(r - before, 0, ns - 1)
-    node = node[:, 0]
-    rk = torch.where(valid, keys[b, node, pos], EMPTY)
-    rv = torch.where(valid, vals[b, node, pos], NOT_FOUND)
-    return rk, rv
+    """Dense RANGE output of the fused path: slot p holds the key of global
+    post-update rank ``g[p]`` (EMPTY / NOT_FOUND where ``g[p] < 0``).  The
+    gather kernel of ``csrc/flix_range.cu`` on the card, counted as
+    ``flix_apply_range``; ``flix_range.flix_range_gather_reference`` on the
+    CPU."""
+    return range_gather(g, pref, node_count, keys, vals, kernel="flix_apply_range")
 
 
 # ---------------------------------------------------------------------------
 # the host side
 # ---------------------------------------------------------------------------
-
-
-def _post_rank(state: FliXState, pref: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Global rank (stored keys < q) per query in a state that holds I1–I4:
-    the owning bucket's rank fence, plus the keys of its nodes wholly below
-    q, plus q's position in the first node that reaches it."""
-    npb = state.nodes_per_bucket
-    b = _bucket_index(state, q)
-    below = state.node_max[b] < q[:, None]
-    before = (state.node_count[b] * below).sum(1, dtype=torch.int32)
-    nidx = below.sum(1, dtype=torch.int32)
-    row = state.keys[b, torch.clamp(nidx, max=npb - 1)]
-    pos = (row < q[:, None]).sum(1, dtype=torch.int32)
-    pos = torch.where(nidx < state.num_nodes[b], pos, 0)
-    return pref[b] + before + pos
 
 
 def range_slots(
@@ -344,10 +322,10 @@ def range_slots(
     split, and the global rank of every output slot.  Returns ``(g, pref,
     start, emit, truncated)`` — the range gather's inputs and the per-op
     segments."""
-    live = state.node_count.sum(1, dtype=torch.int32)
-    pref = torch.cat([live.new_zeros((1,)), torch.cumsum(live, 0, dtype=torch.int32)])
-    rank_lo = _post_rank(state, pref, lo)
-    rank_hi = _post_rank(state, pref, hi)
+    pref = live_prefix(state.node_count)
+    meta = (state.keys, state.node_count, state.node_max, state.mkba, pref)
+    rank_lo = node_rank(*meta, lo)
+    rank_hi = node_rank(*meta, hi)
     full = torch.clamp(rank_hi - rank_lo, min=0)
     start, emit, total_emit, truncated = range_offsets(full, is_range, max_results)
     g = range_slot_ranks(rank_lo, start, total_emit, max_results)
@@ -361,19 +339,25 @@ def flix_apply(
     val: torch.Tensor,
     *,
     max_results: int = DEFAULT_MAX_RESULTS,
+    staged: bool = False,
 ):
     """Fused mixed-batch apply.  Same contract as ``core.ops.apply_ops``.
 
-    The TPU kernel's tiling knobs (``ExecConfig.block_q``, ``block_b``,
-    ``tile_table``) have no counterpart: the launch runs one thread block
-    per bucket and reads none of them.
+    ``staged`` runs the stripe pass on the staged kernel
+    (``ExecConfig(pipeline="on")``), else on the single-buffer one; on the
+    CPU both are the one plain version.  The TPU kernel's tiling knobs
+    (``ExecConfig.block_q``, ``block_b``, ``tile_table``) have no
+    counterpart: the kernels size their own grids.
     """
     cap = state.bucket_capacity
     n = key.shape[0]
     dev = state.device
 
     args, r = stripe_inputs(state, tag, key, val)
-    outs = flix_apply_pass(*args)
+    if staged:
+        outs = flix_apply_staged_pass(state.num_nodes, *args)
+    else:
+        outs = flix_apply_pass(*args)
     okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = outs
     true_counts = r.ins_ends - r.ins_starts
     slice_overflow = true_counts > cap

@@ -61,6 +61,30 @@ def test_plain_version_matches_the_pallas_kernel():
     assert_same_state(ref[0], got[0])
 
 
+def test_pipeline_on_matches_the_pipelined_pallas_kernel():
+    """``ExecConfig(pipeline="on")`` (the staged kernel's plain version on
+    the CPU) against the JAX double-buffered kernel in interpret mode on one
+    tiny batch: same state, results and stats."""
+    rng = np.random.default_rng(29)
+    live = np.sort(rng.choice(400, 40, replace=False)).astype(np.int32)
+    js = jcore.build(live, live * 3, node_size=4, nodes_per_bucket=4)
+    ts = to_port(js)
+    tags, keys, vals = _tiny_batch(rng, live)
+    jops, _ = jcore.make_ops(tags, keys, vals, pad_to=64)
+    tops, _ = tcore.make_ops(tags, keys, vals, pad_to=64, device="cpu")
+    want = flix_apply_pallas(
+        js, jops.tag, jops.key, jops.val, max_results=64, interpret=True, pipeline=True
+    )
+    got = tcore.apply_ops(
+        ts, tops, config=tcore.ExecConfig(impl="fused", pipeline="on", max_results=64)
+    )
+    assert_same_state(want[0], got[0])
+    for k in want[1]:
+        assert_same(want[1][k], got[1][k], k)
+    for k in want[2]:
+        assert int(want[2][k]) == int(got[2][k]), k
+
+
 def _pass_inputs(ts, tops):
     return list(fa.stripe_inputs(ts, tops.tag, tops.key, tops.val)[0])
 
@@ -83,6 +107,12 @@ def test_wrappers_check_their_inputs():
     bad[5] = args[5][:-1]
     with pytest.raises(ValueError, match="slice bounds"):
         fa.flix_apply_pass(*bad)
+    # the staged pass: the same function, with num_nodes beside the inputs
+    staged = fa.flix_apply_staged_pass(ts.num_nodes, *args)
+    for a, b in zip(fa.flix_apply_pass(*args), staged):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="num_nodes"):
+        fa.flix_apply_staged_pass(ts.num_nodes[:-1], *args)
     pref = torch.zeros(ts.num_buckets + 1, dtype=torch.int32)
     g = torch.full((8,), -1, dtype=torch.int32)
     rk, rv = fa.flix_apply_range_pass(g, pref, ts.node_count, ts.keys, ts.vals)

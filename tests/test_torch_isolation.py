@@ -44,3 +44,28 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert int(proc.stdout.strip()) == expected >= 22
     kernels = {m.name for m in pkgutil.iter_modules([str(SRC / "repro_torch" / "kernels")])}
     assert {"ops", "flix_query", "flix_successor", "flix_insert", "flix_delete"} <= kernels
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """``chip_smoke.py`` names no module of JAX or of ``repro`` in any import,
+    its function-level ones included, and imports with JAX unimportable."""
+    import ast
+
+    script = SRC.parent / "chip_smoke.py"
+    names = set()
+    for node in ast.walk(ast.parse(script.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots and not roots & {"jax", "jaxlib", "repro"}, roots
+    proc = subprocess.run(
+        [sys.executable, "-c", 'import sys; sys.modules["jax"] = None; import chip_smoke'],
+        capture_output=True,
+        text=True,
+        timeout=300,
+        env={"PYTHONPATH": str(SRC.parent), "PATH": "/usr/bin:/bin"},
+        cwd=str(SRC.parent),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -17,6 +17,7 @@ from repro_torch.kernels import flix_apply as fa  # noqa: E402
 from repro_torch.kernels import flix_delete as fd  # noqa: E402
 from repro_torch.kernels import flix_insert as fi  # noqa: E402
 from repro_torch.kernels import flix_query as fq  # noqa: E402
+from repro_torch.kernels import flix_range as fr  # noqa: E402
 from repro_torch.kernels import flix_successor as fs  # noqa: E402
 
 EMPTY = tcore.EMPTY
@@ -68,7 +69,7 @@ def test_kernels_match_plain_versions_on_card(cuda, ns, npb):
     pref = torch.cat([live.new_zeros(1), torch.cumsum(live, 0, dtype=torch.int32)])
     g = torch.randint(-1, int(pref[-1]), (8192,), device=cuda, dtype=torch.int32)
     g = torch.sort(g).values
-    w = fa.flix_apply_range_reference(g, pref, new.node_count, new.keys, new.vals)
+    w = fr.flix_range_gather_reference(g, pref, new.node_count, new.keys, new.vals)
     k = fa.flix_apply_range_pass(g, pref, new.node_count, new.keys, new.vals)
     assert torch.equal(w[0], k[0]) and torch.equal(w[1], k[1])
 
@@ -160,3 +161,111 @@ def test_update_kernels_match_plain_on_card(cuda, ns, npb):
     want = tcore.delete(st, dk)[0]
     for f in ("keys", "node_count", "node_max", "num_nodes"):
         assert torch.equal(getattr(new, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", GEOMETRIES)
+def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb):
+    """The staged stripe kernel computes the single-buffer kernel's function:
+    a mixed batch on a state with emptied buckets, and an insert flood that
+    overflows a bucket (the pre-retry outputs equal too)."""
+    rng = np.random.default_rng(3 * ns + npb)
+    st, live = _state_with_holes(rng, ns, npb, cuda)
+    b = int(np.searchsorted(st.mkba.cpu().numpy(), live[3000]))
+    lo, hi = int(st.mkba[b - 1]) + 1, int(st.mkba[b])
+    flood = rng.choice(np.arange(lo, hi + 1), ns * npb + 40, replace=False)
+    for case in ("mixed", "flood"):
+        if case == "mixed":
+            _, ops_ = _random_case(rng, 1 << 15, ns, npb, cuda)
+        else:
+            ik = np.unique(np.concatenate([flood, rng.integers(0, 1 << 26, 2000)]))
+            ops_, _ = tcore.make_ops(np.full(len(ik), tcore.OP_INSERT, np.int32),
+                                     ik.astype(np.int32), device=cuda)
+        args = list(fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)[0])
+        before = dict(LAUNCHES)
+        got = fa.flix_apply_staged_pass(st.num_nodes, *args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
+        _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
+        _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
+        if case == "flood":
+            assert int(got[5].max()) == 1
+
+
+@pytest.mark.cuda
+def test_pipeline_on_launches_the_staged_kernel(cuda):
+    st, ops_ = _random_case(np.random.default_rng(15), 1 << 15, 32, 16, cuda)
+    cfg = tcore.ExecConfig(impl="fused", max_results=4096)
+    before = dict(LAUNCHES)
+    on = tcore.apply_ops_safe(st, ops_, config=cfg.replace(pipeline="on"))
+    assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
+    assert LAUNCHES["flix_apply"] == before["flix_apply"]
+    off = tcore.apply_ops_safe(st, ops_, config=cfg.replace(pipeline="off"))
+    assert LAUNCHES["flix_apply"] == before["flix_apply"] + 1
+    for f in ("keys", "vals", "node_count", "node_max", "num_nodes"):
+        assert torch.equal(getattr(on[0], f), getattr(off[0], f)), f
+    for k in on[1]:
+        assert torch.equal(on[1][k], off[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", GEOMETRIES)
+def test_range_kernels_match_plain_on_card(cuda, ns, npb):
+    """Both passes of flix_range against their plain versions, and the scan
+    against dense_range_scan: fences, inverted ranges, emptied buckets,
+    truncation."""
+    from repro_torch.core.query import live_prefix
+
+    rng = np.random.default_rng(11 * ns + npb)
+    st, live = _state_with_holes(rng, ns, npb, cuda)
+    mk = st.mkba[:-1].cpu().numpy().astype(np.int64)
+    lo = np.concatenate([mk[::97], mk[::97] + 1, live[990:1010], rng.integers(0, 1 << 26, 3000)])
+    hi = np.concatenate([mk[::97] + 1, mk[::97] - 3, live[990:1010] + 50000,
+                         lo[-3000:] + rng.integers(-1000, 1 << 16, 3000)])
+    order = np.argsort(lo, kind="stable")
+    lo_t = torch.as_tensor(lo[order].astype(np.int32), device=cuda)
+    hi_t = torch.as_tensor(np.clip(hi[order], 0, EMPTY).astype(np.int32), device=cuda)
+    pref = live_prefix(st.node_count)
+    meta = (st.keys, st.node_count, st.node_max, st.mkba, pref, lo_t, hi_t)
+    _equal(fr.flix_range_count_reference(*meta), fr.flix_range_count(*meta), "range count")
+    g = torch.sort(torch.randint(-1, int(pref[-1]), (1 << 14,), device=cuda,
+                                 dtype=torch.int32)).values
+    gargs = (g, pref, st.node_count, st.keys, st.vals)
+    _equal(fr.flix_range_gather_reference(*gargs), fr.flix_range_scatter(*gargs), "scatter")
+    is_range = torch.ones(lo_t.shape, dtype=torch.bool, device=cuda)
+    for budget in (1024, 1 << 22):
+        before = dict(LAUNCHES)
+        got = fr.flix_range(st.keys, st.vals, st.mkba, lo_t, hi_t, max_results=budget)
+        assert LAUNCHES["flix_range_count"] == before["flix_range_count"] + 1
+        assert LAUNCHES["flix_range_scatter"] == before["flix_range_scatter"] + 1
+        want = tcore.dense_range_scan(st, is_range, lo_t, hi_t, max_results=budget)
+        _equal(want, got, f"flix_range @ {budget}")
+        assert (int(got[4]) > 0) == (budget == 1024)
+
+
+@pytest.mark.cuda
+def test_kv_index_on_card_equals_cpu(cuda):
+    """A few serving steps (TTL, get-or-set, frees, ranges, a pinned read)
+    on the card and on the CPU give the same results and state."""
+    from repro_torch.serve import PAGE_BITS, KVPageIndex
+
+    cards = KVPageIndex(node_size=32, nodes_per_bucket=16, snapshot_window=2, device=cuda)
+    host = KVPageIndex(node_size=32, nodes_per_bucket=16, snapshot_window=2, device="cpu")
+    seqs = np.arange(64)
+    steps = [
+        dict(allocs=(np.repeat(seqs, 4), np.tile(np.arange(4), 64), np.arange(256),
+                     np.full(256, 30)), now=0),
+        dict(getsets=(seqs[:8], np.zeros(8, int), seqs[:8], np.full(8, 90)),
+             lookups=(seqs, np.ones(64, int)), now=10),
+        dict(free_seqs=seqs[40:48], ranges=(seqs[:4] << PAGE_BITS, (seqs[:4] + 1) << PAGE_BITS),
+             now=20, max_pages=4),
+        dict(lookups=(seqs, np.zeros(64, int)), now=40),
+        dict(lookups=(seqs, np.zeros(64, int)), as_of=2),
+    ]
+    for kw in steps:
+        a, b = cards.step(**kw), host.step(**kw)
+        assert torch.equal(a.slots.cpu(), b.slots)
+        for k in (a.range_out or {}):
+            assert torch.equal(a.range_out[k].cpu(), b.range_out[k])
+    for f in ("keys", "node_count", "node_max", "num_nodes", "exps"):
+        assert torch.equal(getattr(cards.state, f).cpu(), getattr(host.state, f)), f

@@ -228,23 +228,31 @@ def test_config_surface(adversarial):
         np.array([1, int(live[0])], np.int32),
         device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tcore.apply_ops(ts, tops, config=tcore.ExecConfig(impl="fused", pipeline="on"))
-    with pytest.raises(NotImplementedError, match="TTL"):
-        tcore.apply_ops(ts, tcore.OpBatch(tops.tag, tops.key, tops.val, exp=tops.val))
     with pytest.raises(ValueError):
         tcore.ExecConfig(impl="pallas")
-    # "auto" off the card is the reference engine; donate and the TPU tile
-    # knobs change nothing
+    with pytest.raises(ValueError):
+        tcore.ExecConfig(pipeline="maybe")
+    # "auto" off the card is the reference engine; donate, the TPU tile
+    # knobs and the pipeline change nothing
     base = tcore.apply_ops(ts, tops, config=tcore.ExecConfig(impl="reference"))
     for cfg in (
         tcore.ExecConfig(),
         tcore.ExecConfig(impl="fused", pipeline="off", donate=True, block_q=64, block_b=4),
+        tcore.ExecConfig(impl="fused", pipeline="on"),
     ):
         got = tcore.apply_ops(ts, tops, config=cfg)
         for k in ("value", "succ_key"):
             assert torch.equal(base[1][k], got[1][k])
         assert torch.equal(base[0].keys, got[0].keys)
+    # a batch with an expiry column takes the TTL path: no deadline, no change
+    no_ttl = torch.full_like(tops.key, tcore.NO_EXPIRY)
+    got = tcore.apply_ops(ts, tcore.OpBatch(tops.tag, tops.key, tops.val, exp=no_ttl))
+    assert torch.equal(base[0].keys, got[0].keys) and int(got[2]["expired"]) == 0
+    assert bool((got[0].exps == tcore.NO_EXPIRY).all())
+    assert tcore.ExecConfig().resolve_pipeline(torch.device("cuda"))
+    assert not tcore.ExecConfig().resolve_pipeline(torch.device("cpu"))
+    assert not tcore.ExecConfig(pipeline="off").resolve_pipeline(torch.device("cuda"))
+    assert tcore.ExecConfig(pipeline="on").resolve_pipeline(torch.device("cpu"))
     rows = ((1 << 14, 256, 128, 2), (1 << 20, 4096, 512, 4))
     jt, tt = JTileTable(entries=rows), tcore.TileTable(entries=rows)
     for build_size, batch in ((100, 10), (1 << 16, 300), (1 << 24, 1 << 20)):
