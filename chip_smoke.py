@@ -21,7 +21,13 @@ line, and no phase catches its own failure:
                 hit/miss queries, boundary keys, emptied buckets, duplicate
                 delete keys and an insert batch that overflows a bucket.
                 flix_range's count and scatter: ranges on bucket fences,
-                hi <= lo, over emptied buckets, and a truncating budget;
+                hi <= lo, over emptied buckets, and a truncating budget.
+                grouped_matmul within its float32 tolerance, in f32, bf16
+                and both mixes: the reference's sweep shapes, empty groups,
+                one group holding every row, T, D and F that are multiples
+                of no tile (and D, F odd), rows outside every group (which
+                must come out exactly zero from memory left NaN), and a
+                skewed split, on both row-tile heights;
   4. main     — the paper's smallest build: 2^24 unique uniform keys from a
                 2^27 key space at the default geometry (32-key nodes, 16 per
                 bucket, fill 0.5: 2^20 buckets, ~4.4 GB of state), then 8
@@ -59,7 +65,22 @@ line, and no phase catches its own failure:
                 under max_results = 2^20, held against ``dense_range_scan``;
                 ``range_query`` and ``with_successor_cache`` against their
                 definitions;
-  8. the kernels line, the card line, and the result line.
+  8. moe      — the flipped MoE FFN of examples/moe_routing.py (make_plan,
+                dispatch, grouped_matmul up, silu, grouped_matmul down,
+                combine) through ``repro_torch.kernels.ops`` at full width
+                in bf16, widths from ``repro_torch.configs``: A
+                deepseek-moe-16b, 128 tokens (decode_32k's global batch; 768
+                slots over 64 experts); B the same, 4096 tokens (a prefill
+                chunk); C mixtral-8x22b, 4096 tokens; and a skewed router at
+                A's size (one expert takes every token, 16 take none).  Both
+                GEMMs of each FFN must launch the kernel and equal
+                ``grouped_matmul_reference``, and the FFN the dense oracle
+                ``moe_ffn_reference``.  Each GEMM prints its kernel, plain and
+                library (``torch._grouped_mm``) times and its bound.  Cuts:
+                one MoE layer of 28 or 56 (every layer repeats the same
+                computation on other weights); deepseek's 2 shared experts
+                are not on this path (``moe_dispatch`` has none);
+  9. the kernels line, the card line, and the result line.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -81,6 +102,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 20260
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 FULL_KEYS = 1 << 24
 FULL_SPACE = 1 << 27
 FULL_OPS = 1 << 20
@@ -102,6 +125,15 @@ SERVE_RANGE_BUDGET = 1 << 18
 SERVE_TTL = 40  # clock units an appended page lives (4 steps)
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
+MOE_PREFILL = 4096  # tokens of a prefill chunk
+# (run, configuration, tokens; None: decode_32k's global batch, skewed router)
+MOE_RUNS = (
+    ("A", "deepseek-moe-16b", None, False),
+    ("B", "deepseek-moe-16b", MOE_PREFILL, False),
+    ("C", "mixtral-8x22b", MOE_PREFILL, False),
+    ("skew", "deepseek-moe-16b", None, True),
+)
+MOE_TIME_MS = 100  # CUDA-event window per timed GEMM
 STRIPE_KERNEL = {"off": "flix_apply", "on": "flix_apply_staged"}
 CSRC = "src/repro_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
@@ -116,6 +148,7 @@ KERNELS = {
     "flix_delete": ("flix_delete.cu", "src/repro/kernels/flix_delete.py:48"),
     "flix_range_count": ("flix_range.cu", "src/repro/kernels/flix_range.py:53"),
     "flix_range_scatter": ("flix_range.cu", "src/repro/kernels/flix_range.py:82"),
+    "grouped_matmul": ("grouped_matmul.cu", "src/repro/kernels/grouped_matmul.py:33"),
 }
 
 
@@ -215,13 +248,33 @@ class Traffic:
         return tags, keys, vals
 
 
-def max_abs_err(want, got) -> int:
+def max_abs_err(want, got):
+    """The largest difference over paired outputs: an int for integer
+    outputs, a float (inf where either side is not finite) for float ones."""
     err = 0
     for i, (w, g) in enumerate(zip(want, got)):
         if w.shape != g.shape:
             raise AssertionError(f"output {i}: shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if w.numel():
+        if not w.numel():
+            continue
+        if w.is_floating_point():
+            d = (w.double() - g.double()).abs().max()
+            err = max(err, float(d) if torch.isfinite(d) else float("inf"))
+        else:
             err = max(err, int((w.long() - g.long()).abs().max()))
+    return err
+
+
+def close_err(want, got, label) -> float:
+    """``got`` against ``want`` where both sum exact float32 products in
+    float32, in different orders: within ``1e-4 * |want| + 1e-4 * max|want|``
+    elementwise (NaN fails).  Returns the largest absolute error."""
+    err = max_abs_err([want], [got])
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    ok = (got - want).abs() <= 1e-4 * want.abs() + 1e-4 * scale
+    if not bool(ok.all()):
+        raise AssertionError(f"{label}: outside float32 tolerance (max_abs_err {err}, "
+                             f"max|want| {scale})")
     return err
 
 
@@ -261,6 +314,14 @@ class KernelCheck:
         self.err[kernel] = max(self.err[kernel], e)
         if e:
             raise AssertionError(f"{label}: {kernel} disagrees with its plain version ({e})")
+        return e
+
+    def hold_close(self, kernel, want, got, label):
+        """A float kernel's output against its plain version's, within
+        :func:`close_err`'s tolerance; keep the worst error."""
+        torch.cuda.synchronize()
+        e = close_err(want, got, f"{label}: {kernel}")
+        self.err[kernel] = max(self.err[kernel], e)
         return e
 
     def run(self, state, ops, max_results, label):
@@ -1125,6 +1186,228 @@ def phase_range(dev, check):
                                    err=0),
     }
 
+def random_offsets(T: int, E: int, gen) -> torch.Tensor:
+    """Ascending int32 offsets [E+1] from 0 to T at random cut points (ties
+    give empty groups)."""
+    cuts = torch.randint(0, T + 1, (E - 1,), generator=gen, device=gen.device)
+    ends = torch.tensor([0, T], device=gen.device)
+    return torch.sort(torch.cat([ends[:1], cuts, ends[1:]])).values.to(torch.int32)
+
+
+def phase_gemm(dev, check: KernelCheck):
+    """grouped_matmul against its plain version at small shapes, every
+    dtype mix; rows outside every group must be exactly zero."""
+    from repro_torch.kernels import grouped_matmul as tg
+
+    log("phase 3f: grouped_matmul, small shapes, f32, bf16 and mixed")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def fixed(*offs):
+        return lambda: torch.tensor(offs, dtype=torch.int32, device=dev)
+
+    cases = [  # label, T, D, F, offsets
+        ("sweep 256x128x256 E=4", 256, 128, 256, lambda: random_offsets(256, 4, gen)),
+        ("sweep 512x64x128 E=8", 512, 64, 128, lambda: random_offsets(512, 8, gen)),
+        ("empty groups", 256, 64, 128, fixed(0, 0, 128, 128, 128, 256, 256, 256, 256)),
+        ("one group holds every row", 300, 64, 72, fixed(0, 0, 300, 300)),
+        ("ragged 1000x96x200", 1000, 96, 200, lambda: random_offsets(1000, 5, gen)),
+        ("rows outside every group", 1000, 96, 200, fixed(37, 200, 200, 650, 900)),
+        ("odd widths, 128-row tiles", 777, 99, 201, lambda: random_offsets(777, 6, gen)),
+        ("odd widths, 32-row tiles", 200, 130, 75, lambda: random_offsets(200, 16, gen)),
+        ("skewed: half in one group, 8 empty", 768, 256, 176,
+         fixed(*[0] * 9, 384, 440, 500, 560, 610, 650, 720, 768)),
+    ]
+    floats = (torch.float32, torch.bfloat16)
+    worst = 0.0
+    for label, T, D, F, make_offs in cases:
+        for dx in floats:
+            for dw in floats:
+                offs = make_offs()
+                E = offs.numel() - 1
+                x = torch.randn((T, D), generator=gen, device=dev).to(dx)
+                w = (torch.randn((E, D, F), generator=gen, device=dev) * 0.1).to(dw)
+                # leave NaN where the output will likely be allocated: rows
+                # outside every group must be zeroed by the kernel itself
+                torch.full((T * F,), float("nan"), device=dev)
+                got = tg.grouped_matmul(x, w, offs)
+                want = tg.grouped_matmul_reference(x, w, offs)
+                where = f"{label} ({str(dx)[6:]} x {str(dw)[6:]})"
+                worst = max(worst, check.hold_close("grouped_matmul", want, got, where))
+                lo, hi = int(offs[0]), int(offs[-1])
+                outside = torch.cat([got[:lo], got[hi:]])
+                if not torch.equal(outside, torch.zeros_like(outside)):
+                    raise AssertionError(f"{where}: rows outside every group are not zero")
+    log(f"  grouped_matmul: {len(cases)} cases x 4 dtype mixes within the float32 tolerance "
+        f"of the plain version (max_abs_err {worst:.3g}); rows outside every group zero")
+
+
+def moe_config(arch: str):
+    from repro_torch import configs
+
+    return configs.get(arch)
+
+
+def gemm_bound(x, w, offs):
+    """(ms, bound_by, flops, bytes) of one grouped GEMM on these inputs: the
+    larger of the bytes (the grouped rows of x read once, the weights of the
+    non-empty experts read once, out written once as f32) over the memory
+    rate and 2 * rows * D * F over the bf16 tensor-core rate, or the f32 rate
+    when an operand is f32."""
+    o = torch.clamp(offs, 0, x.shape[0])
+    rows = int(o[-1] - o[0])
+    nonempty = int((o[1:] > o[:-1]).sum())
+    _, D, F = w.shape
+    moved = (rows * D * x.element_size() + nonempty * D * F * w.element_size()
+             + x.shape[0] * F * 4)
+    flops = 2 * rows * D * F
+    bf16 = x.dtype == w.dtype == torch.bfloat16
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations", flops, moved
+
+
+def timed_ms(fn) -> float:
+    """Device time of one call of ``fn`` by CUDA events: one warm-up call,
+    then as many calls as fill about ``MOE_TIME_MS`` (3 to 50)."""
+    fn()
+    first = event_ms(fn, 1)
+    return event_ms(fn, max(3, min(50, int(MOE_TIME_MS / max(first, 1e-3)))))
+
+
+def grouped_mm_ms(x, w, offs):
+    """The yardstick ``torch._grouped_mm`` on the same inputs: (ms, note),
+    ms None where no single PyTorch call computes the same function."""
+    if not (x.dtype == w.dtype == torch.bfloat16):
+        return None, "null: no single PyTorch call multiplies f32 by bf16 in f32"
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "null: this torch has no torch._grouped_mm"
+    ends = offs[1:].int()  # cumulative group ends; offs[0] == 0 on this path
+    notes = []
+    for out_dtype in (torch.float32, None):
+        call = lambda: fn(x, w, offs=ends, out_dtype=out_dtype)  # noqa: E731
+        try:
+            call()
+        except RuntimeError as exc:
+            notes.append(f"out_dtype={out_dtype} refused: {str(exc).splitlines()[0][:120]}")
+            continue
+        note = "f32 output" if out_dtype is torch.float32 else "bf16 output"
+        return timed_ms(call), "; ".join(notes + [note])
+    return None, "null: " + "; ".join(notes)
+
+
+def moe_inputs(cfg, T: int, skew: bool, gen):
+    """x ~ N(0,1), router [D, E] f32 and expert weights ~ N(0,1) * 0.02 in
+    the configuration's dtype, router logits ``x.float() @ router``.  A
+    skewed router gives expert 0 every token (a sixth of the slots under
+    top-6: the most one expert can hold) and 16 experts none."""
+    dev = gen.device
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    dt = getattr(torch, cfg.dtype)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = normal(T, D).to(dt)
+    router = normal(D, E, scale=0.02)
+    w_up = torch.empty((E, D, F), dtype=dt, device=dev)
+    w_down = torch.empty((E, F, D), dtype=dt, device=dev)
+    for e in range(E):  # one expert at a time: no f32 copy of all weights
+        w_up[e] = normal(D, F, scale=0.02)
+        w_down[e] = normal(F, D, scale=0.02)
+    logits = x.float() @ router
+    if skew:
+        logits[:, 0] += 10.0
+        logits[:, E - 16:] -= 1e4
+    return x, logits, w_up, w_down
+
+
+def phase_moe(dev, check: KernelCheck):
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import grouped_matmul as tg
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models.config import SHAPES
+
+    # the plain versions and the dense oracle are f32 matmuls: full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    gemms, launches = [], 0
+    for label, arch, tokens, skew in MOE_RUNS:
+        t_run = time.perf_counter()
+        cfg = moe_config(arch)
+        E, k, D, F = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+        T = tokens or SHAPES["decode_32k"]["global_batch"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        x, logits, w_up, w_down = moe_inputs(cfg, T, skew, gen)
+        log(f"phase 8 run {label}: {arch}, T={T} tokens, {T * k} slots, E={E} k={k} D={D} "
+            f"F={F}, {cfg.dtype}")
+
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        plan = md.make_plan(logits, k, E)
+        xs = md.dispatch(x, plan, k)
+        up = ops.grouped_matmul(xs, w_up, plan.group_offsets)
+        h = torch.nn.functional.silu(up)
+        ys = ops.grouped_matmul(h, w_down, plan.group_offsets)
+        out = md.combine(ys, plan, k)
+        torch.cuda.synchronize()
+        ffn_ms = (time.perf_counter() - t0) * 1e3
+        n = LAUNCHES["grouped_matmul"]
+        if n != 2:
+            raise AssertionError(f"run {label}: grouped_matmul launched {n} times, expected 2")
+        launches += n
+        offs = plan.group_offsets
+        sizes = offs[1:] - offs[:-1]
+        n_empty, largest = int((sizes == 0).sum()), int(sizes.max())
+        if skew:
+            assert largest == T and n_empty >= 8, (largest, n_empty)
+        assert out.shape == (T, D) and out.dtype == torch.float32
+        assert bool(torch.isfinite(out).all()), f"run {label}: non-finite output"
+        log(f"  flipped FFN {ffn_ms:.3f} ms (host clock, first call); groups: largest "
+            f"{largest}, empty {n_empty}, mean {T * k / E:.1f}")
+
+        for name, a, w, got in (("up", xs, w_up, up), ("down", h, w_down, ys)):
+            want, plain_ms = host_ms(lambda: tg.grouped_matmul_reference(a, w, offs))
+            err = check.hold_close("grouped_matmul", want, got, f"run {label} {name}")
+            del want
+            ms = timed_ms(lambda: tg.grouped_matmul(a, w, offs))
+            lib_ms, lib_note = grouped_mm_ms(a, w, offs)
+            bound, by, flops, moved = gemm_bound(a, w, offs)
+            gemms.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"  {name} ({str(a.dtype)[6:]} x {str(w.dtype)[6:]}): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, library {lib} ({lib_note}), bound {bound:.4f} ms "
+                f"by {by} ({flops} FLOP, {moved} B; {ms / bound:.1f}x), max_abs_err {err:.3g}")
+        want = md.moe_ffn_reference(x, logits, w_up, w_down, k)
+        err = close_err(want, out, f"run {label}: FFN vs moe_ffn_reference")
+        del want
+        log(f"  FFN equals moe_ffn_reference (max_abs_err {err:.3g}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; run "
+            f"{time.perf_counter() - t_run:.1f} s")
+        del x, logits, w_up, w_down, xs, up, h, ys, out, plan
+    ops_share = sum(g["bound_ms"] for g in gemms if g["bound_by"] == "operations")
+    bytes_share = sum(g["bound_ms"] for g in gemms if g["bound_by"] == "bytes")
+    log(f"  kernels line: means over the {len(gemms)} GEMMs; library_ms null, since the down "
+        f"projections (f32 x bf16) have no single PyTorch call (up projections' "
+        f"torch._grouped_mm times above)")
+    return {
+        "grouped_matmul": dict(
+            launches=launches,
+            ms=fmean(g["ms"] for g in gemms),
+            plain_ms=fmean(g["plain_ms"] for g in gemms),
+            bound_ms=fmean(g["bound_ms"] for g in gemms),
+            bound_by="operations" if ops_share > bytes_share else "bytes",
+            err=0,
+        )
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1153,10 +1436,12 @@ def main() -> int:
     phases = [
         ("3", lambda: phase_kernels(dev, check)),
         ("3d", lambda: phase_kernel_ops(dev, check)),
+        ("3f", lambda: phase_gemm(dev, check)),
         ("4", lambda: measured.update(phase_main(dev))),
         ("5", lambda: measured.update(phase_fig9(dev, check))),
         ("6", lambda: serve_launches.update(phase_serve(dev))),
         ("7", lambda: measured.update(phase_range(dev, check))),
+        ("8", lambda: measured.update(phase_moe(dev, check))),
     ]
     measured, serve_launches = {}, {}
     for label, run in phases:
@@ -1180,8 +1465,8 @@ def main() -> int:
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": None,
+            "bound_by": m.get("bound_by", "bytes"),
+            "library_ms": m.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,18 @@
+"""mamba2-1.3b [ssm] — SSD (state-space duality), attention-free
+[arXiv:2405.21060]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b",
+    family="ssm",
+    num_layers=48,
+    d_model=2048,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_chunk=256,  # §Perf iteration 5: memory term 6.38→3.96 s vs Q=64
+)

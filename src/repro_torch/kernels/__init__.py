@@ -18,6 +18,10 @@ flix_insert     — TL-Bulk insertion, one thread block per bucket
                   (``csrc/flix_insert.cu``)
 flix_delete     — TL-Bulk deletion, one thread block per bucket
                   (``csrc/flix_delete.cu``)
+grouped_matmul  — ragged grouped GEMM over expert-sorted rows, float32
+                  accumulate and output (``csrc/grouped_matmul.cu``)
+moe_dispatch    — the flipped MoE dispatch around it: route and sort by
+                  expert, dispatch, combine, and the dense oracle
 _phases         — plain torch versions of the stripe phases of
                   ``csrc/flix_phases.cuh``
 _launch         — input checks, the launch call and the ``LAUNCHES`` counts

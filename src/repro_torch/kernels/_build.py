@@ -50,6 +50,7 @@ SIGNATURES = {
     "flix_insert_launch": ([_P] * 12 + [_I] * 4 + [_P], _I),
     "flix_delete_smem_bytes": ([_I, _I], _I),
     "flix_delete_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "grouped_matmul_launch": ([_P] * 5 + [_I] * 6 + [_P], _I),
 }
 
 _lock = threading.Lock()

@@ -26,6 +26,7 @@ LAUNCHES = {
     "flix_delete": 0,
     "flix_range_count": 0,
     "flix_range_scatter": 0,
+    "grouped_matmul": 0,
 }
 
 
@@ -34,11 +35,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def check(device: torch.device, names, tensors) -> None:
-    """Every tensor: int32, contiguous, on ``device``."""
+def check(device: torch.device, names, tensors, dtypes=(torch.int32,)) -> None:
+    """Every tensor: one of ``dtypes`` (int32 unless the caller allows
+    others), contiguous, on ``device``."""
     for name, t in zip(names, tensors):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            allowed = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name}: expected {allowed}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
         if t.device != device:

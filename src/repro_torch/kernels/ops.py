@@ -10,15 +10,19 @@ port's modes:
                  the reference engine ``_apply_ops_reference``).
 
 ``"pallas"`` and ``"interpret"`` are the reference's TPU modes and raise
-``ValueError``.  The TPU tiling knobs ``block_q`` and ``block_b`` are
+``ValueError``.  The TPU tiling knobs ``block_q`` and ``block_b`` (and
+``grouped_matmul``'s ``block_t``, ``block_f`` and ``max_span``) are
 accepted and ignored: the CUDA kernels choose their own launch shape.
-``grouped_matmul`` is not ported yet (ROADMAP Queue 2).
+``grouped_matmul``'s ``"ref"`` is the port of ``ref.grouped_matmul_ref``,
+whose rows outside every group take the clipped group where the kernel
+leaves them zero (``kernels/grouped_matmul.py``).
 """
 
 from __future__ import annotations
 
 from repro_torch.core.config import DEFAULT_MAX_RESULTS
 from repro_torch.core.state import FliXState
+from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels.flix_delete import flix_delete as _delete_kernel
 from repro_torch.kernels.flix_insert import flix_insert as _insert_kernel
 from repro_torch.kernels.flix_query import flix_point_query as _query_kernel
@@ -71,6 +75,14 @@ def flix_delete(state: FliXState, sorted_del_keys, *, mode: str = "auto", **bloc
 
         return delete(state, sorted_del_keys)[0]
     return _delete_kernel(state, sorted_del_keys)
+
+
+def grouped_matmul(x, w, group_offsets, *, mode: str = "auto", **blocks):
+    """Ragged grouped GEMM: ``[T, F]`` float32, ``x[t] @ w[g]`` for the rows
+    ``offs[g] <= t < offs[g+1]`` of ``x [T, D]`` and ``w [E, D, F]``."""
+    if _resolve(mode, blocks, ("block_t", "block_f", "max_span")) == "ref":
+        return _gmm.grouped_matmul_ref(x, w, group_offsets)
+    return _gmm.grouped_matmul(x, w, group_offsets)
 
 
 def flix_insert(state: FliXState, sorted_keys, sorted_vals, *, mode: str = "auto"):

@@ -43,7 +43,15 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.strip()) == expected >= 22
     kernels = {m.name for m in pkgutil.iter_modules([str(SRC / "repro_torch" / "kernels")])}
-    assert {"ops", "flix_query", "flix_successor", "flix_insert", "flix_delete"} <= kernels
+    assert {
+        "ops",
+        "flix_query",
+        "flix_successor",
+        "flix_insert",
+        "flix_delete",
+        "grouped_matmul",
+        "moe_dispatch",
+    } <= kernels
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, exact, on a
-CUDA card only (the kernels have no CPU mode; these tests skip without a
+"""The port's CUDA kernels against their plain torch versions, exact (the
+grouped GEMM within the float32 tolerance stated below), on a CUDA card only (the kernels have no CPU mode; these tests skip without a
 card).  The file imports no JAX, so it also runs where only torch is
 installed:
 
@@ -19,6 +19,8 @@ from repro_torch.kernels import flix_insert as fi  # noqa: E402
 from repro_torch.kernels import flix_query as fq  # noqa: E402
 from repro_torch.kernels import flix_range as fr  # noqa: E402
 from repro_torch.kernels import flix_successor as fs  # noqa: E402
+from repro_torch.kernels import grouped_matmul as tg  # noqa: E402
+from repro_torch.kernels import moe_dispatch as tmd  # noqa: E402
 
 EMPTY = tcore.EMPTY
 GEOMETRIES = [(32, 16), (8, 8), (32, 64), (64, 8)]
@@ -269,3 +271,106 @@ def test_kv_index_on_card_equals_cpu(cuda):
             assert torch.equal(a.range_out[k].cpu(), b.range_out[k])
     for f in ("keys", "node_count", "node_max", "num_nodes", "exps"):
         assert torch.equal(getattr(cards.state, f).cpu(), getattr(host.state, f)), f
+
+
+# The grouped GEMM and its plain version both sum float32 products in float32,
+# in different orders (the kernel with FMA), so they agree to a relative 1e-4
+# of the output's largest magnitude; rows outside every group are exactly 0.
+def _assert_gemm_close(got, want):
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def _gemm_inputs(rng, T, D, F, offs, dx, dw, device):
+    E = len(offs) - 1
+    x = torch.as_tensor(rng.normal(size=(T, D)).astype(np.float32), device=device).to(dx)
+    w = torch.as_tensor((rng.normal(size=(E, D, F)) * 0.1).astype(np.float32), device=device)
+    return x, w.to(dw), torch.as_tensor(np.asarray(offs, np.int32), device=device)
+
+
+def _uniform_offs(rng, T, E):
+    return np.concatenate([[0], np.cumsum(rng.multinomial(T, np.ones(E) / E))])
+
+
+GEMM_CASES = {
+    "sweep_256": (256, 128, 256, lambda r: _uniform_offs(r, 256, 4)),
+    "sweep_512": (512, 64, 128, lambda r: _uniform_offs(r, 512, 8)),
+    "empty_groups": (256, 64, 128, lambda r: [0, 0, 128, 128, 128, 256, 256, 256, 256]),
+    "one_group": (300, 64, 72, lambda r: [0, 0, 300, 300]),
+    "ragged": (1000, 96, 200, lambda r: _uniform_offs(r, 1000, 5)),
+    "outside_rows": (1000, 96, 200, lambda r: [37, 200, 200, 650, 900]),
+    "odd_widths": (777, 99, 201, lambda r: _uniform_offs(r, 777, 6)),
+    "odd_widths_small_tiles": (200, 130, 75, lambda r: _uniform_offs(r, 200, 16)),
+    # half the rows in one group, 8 groups empty
+    "skewed": (768, 256, 176, lambda r: [0] * 9 + [384, 440, 500, 560, 610, 650, 720, 768]),
+}
+FLOATS = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+@pytest.mark.parametrize("dx", FLOATS)
+@pytest.mark.parametrize("dw", FLOATS)
+def test_grouped_matmul_matches_plain_on_card(cuda, case, dx, dw):
+    T, D, F, make = GEMM_CASES[case]
+    rng = np.random.default_rng(T + D + F)
+    offs = make(rng)
+    x, w, o = _gemm_inputs(rng, T, D, F, offs, dx, dw, cuda)
+    # leave NaN in the memory the output will reuse: rows outside every group
+    # must come out zero from the kernel, not from a fresh allocation
+    torch.full((T * F,), float("nan"), device=cuda)
+    before = LAUNCHES["grouped_matmul"]
+    got = tg.grouped_matmul(x, w, o)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_matmul"] == before + 1
+    want = tg.grouped_matmul_reference(x, w, o)
+    _assert_gemm_close(got, want)
+    outside = torch.cat([got[: offs[0]], got[offs[-1]:]])
+    assert torch.equal(outside, torch.zeros_like(outside))
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_refuses_other_dtypes_on_card(cuda):
+    x = torch.zeros(16, 8, device=cuda)
+    w = torch.zeros(2, 8, 4, device=cuda)
+    o = torch.tensor([0, 8, 16], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tg.grouped_matmul(x.half(), w, o)
+    with pytest.raises(TypeError):
+        tg.grouped_matmul(x, w.half(), o)
+
+
+@pytest.mark.cuda
+def test_flipped_moe_ffn_on_card_matches_dense_oracle(cuda):
+    """The walk of ``examples/moe_routing.py`` through ``ops.grouped_matmul``
+    on the card, with bf16 weights: two launches, equal to the oracle."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    T, D, F, E, K = 256, 128, 96, 8, 2
+    x = torch.as_tensor(rng.normal(size=(T, D)).astype(np.float32), device=cuda)
+    logits = torch.as_tensor(rng.normal(size=(T, E)).astype(np.float32), device=cuda)
+    w_up = torch.as_tensor(rng.normal(size=(E, D, F)) * 0.05, device=cuda).bfloat16()
+    w_down = torch.as_tensor(rng.normal(size=(E, F, D)) * 0.05, device=cuda).bfloat16()
+    before = LAUNCHES["grouped_matmul"]
+    plan = tmd.make_plan(logits, K, E)
+    xs = tmd.dispatch(x.bfloat16(), plan, K)
+    h = torch.nn.functional.silu(ops.grouped_matmul(xs, w_up, plan.group_offsets))
+    out = tmd.combine(ops.grouped_matmul(h, w_down, plan.group_offsets), plan, K)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_matmul"] == before + 2
+    _assert_gemm_close(out, tmd.moe_ffn_reference(x.bfloat16(), logits, w_up, w_down, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 3, 8])
+def test_grouped_matmul_on_unaligned_views_on_card(cuda, shift):
+    """x and w as contiguous views whose data do not start on 16 bytes."""
+    rng = np.random.default_rng(shift)
+    T, D, F, E = 160, 64, 136, 4
+    offs = _uniform_offs(rng, T, E)
+    x0, w0, o = _gemm_inputs(rng, T, D, F, offs, torch.bfloat16, torch.bfloat16, cuda)
+    xb = torch.empty(T * D + shift, dtype=torch.bfloat16, device=cuda)
+    wb = torch.empty(E * D * F + shift, dtype=torch.bfloat16, device=cuda)
+    x = xb[shift:].view(T, D).copy_(x0)
+    w = wb[shift:].view(E, D, F).copy_(w0)
+    _assert_gemm_close(tg.grouped_matmul(x, w, o), tg.grouped_matmul_reference(x0, w0, o))
