@@ -26,8 +26,14 @@ line, and no phase catches its own failure:
                 and both mixes: the reference's sweep shapes, empty groups,
                 one group holding every row, T, D and F that are multiples
                 of no tile (and D, F odd), rows outside every group (which
-                must come out exactly zero from memory left NaN), and a
-                skewed split, on both row-tile heights;
+                must come out exactly zero from memory left NaN), a skewed
+                split, a K tail, groups straddling row tiles and
+                decode-sized groups, on every row-tile height; each launch
+                must count under the variant the rule names (wgmma, mma or
+                fma), unaligned views must keep mma and fma, and f32 x
+                with 1e30, +-3.3e38, 1e-30, subnormal, +-inf and NaN entries
+                must give the reference's inf and NaN and, elsewhere, its
+                values within tolerance;
   4. main     — the paper's smallest build: 2^24 unique uniform keys from a
                 2^27 key space at the default geometry (32-key nodes, 16 per
                 bucket, fill 0.5: 2^20 buckets, ~4.4 GB of state), then 8
@@ -75,8 +81,13 @@ line, and no phase catches its own failure:
                 A's size (one expert takes every token, 16 take none).  Both
                 GEMMs of each FFN must launch the kernel and equal
                 ``grouped_matmul_reference``, and the FFN the dense oracle
-                ``moe_ffn_reference``.  Each GEMM prints its kernel, plain and
-                library (``torch._grouped_mm``) times and its bound.  Cuts:
+                ``moe_ffn_reference``; all 8 GEMMs must run the wgmma
+                variant.  The FFN's parts (make_plan, dispatch, up GEMM,
+                silu, down GEMM, combine) are timed by CUDA events; each
+                GEMM prints its variant, its kernel, plain and library
+                (``torch._grouped_mm``) times, its bound (an f32 x bf16
+                GEMM's operations counted as the split's 3 bf16 products at
+                the bf16 rate) and PR 14's bound (67 TFLOP/s).  Cuts:
                 one MoE layer of 28 or 56 (every layer repeats the same
                 computation on other weights); deepseek's 2 shared experts
                 are not on this path (``moe_dispatch`` has none);
@@ -134,6 +145,7 @@ MOE_RUNS = (
     ("skew", "deepseek-moe-16b", None, True),
 )
 MOE_TIME_MS = 100  # CUDA-event window per timed GEMM
+FFN_PART_REPS = 5  # FFN runs timed part by part
 STRIPE_KERNEL = {"off": "flix_apply", "on": "flix_apply_staged"}
 CSRC = "src/repro_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
@@ -1194,9 +1206,55 @@ def random_offsets(T: int, E: int, gen) -> torch.Tensor:
     return torch.sort(torch.cat([ends[:1], cuts, ends[1:]])).values.to(torch.int32)
 
 
+def expected_variant(x, w) -> str:
+    """grouped_matmul's variant by its stated rule: wgmma for bf16 weights
+    where TMA can address both tensors, mma for other bf16 x bf16, fma for
+    the rest."""
+    D, F = x.shape[1], w.shape[2]
+    bf16_x = x.dtype == torch.bfloat16
+    tma = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and F % 8 == 0
+           and D % (8 if bf16_x else 4) == 0)
+    if w.dtype == torch.bfloat16 and tma:
+        return "wgmma"
+    return "mma" if bf16_x and w.dtype == torch.bfloat16 else "fma"
+
+
+def gemm_variant_run(x, w, offs, where):
+    """One grouped_matmul launch that must count one launch of the variant
+    the rule names; returns (output, variant)."""
+    from repro_torch.kernels import GMM_VARIANTS
+    from repro_torch.kernels import grouped_matmul as tg
+
+    want = expected_variant(x, w)
+    before = dict(GMM_VARIANTS)
+    got = tg.grouped_matmul(x, w, offs)
+    ran = [k for k in GMM_VARIANTS if GMM_VARIANTS[k] != before[k]]
+    if ran != [want] or GMM_VARIANTS[want] != before[want] + 1:
+        raise AssertionError(f"{where}: ran {ran}, expected one launch of {want}")
+    return got, want
+
+
+def same_non_finite_close_by_row(want, got, label) -> float:
+    """Where ``want`` is inf or NaN, ``got`` is the same; elsewhere within
+    ``1e-4 * |want| + 1e-4 * max|want|`` over the row's finite entries.
+    Returns the largest absolute error over the finite entries."""
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))
+            and torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])):
+        raise AssertionError(f"{label}: inf or NaN where the reference has none, or the reverse")
+    fin = torch.isfinite(want)
+    zero = torch.zeros_like(want)
+    scale = torch.where(fin, want.abs(), zero).amax(1, keepdim=True)
+    err = torch.where(fin, (got - want).abs(), zero)
+    if not bool((err <= 1e-4 * torch.where(fin, want.abs(), zero) + 1e-4 * scale).all()):
+        raise AssertionError(f"{label}: outside float32 tolerance ({float(err.max())})")
+    return float(err.max())
+
+
 def phase_gemm(dev, check: KernelCheck):
     """grouped_matmul against its plain version at small shapes, every
-    dtype mix; rows outside every group must be exactly zero."""
+    dtype mix, each launch counted under the variant its rule names; rows
+    outside every group must be exactly zero."""
     from repro_torch.kernels import grouped_matmul as tg
 
     log("phase 3f: grouped_matmul, small shapes, f32, bf16 and mixed")
@@ -1217,9 +1275,12 @@ def phase_gemm(dev, check: KernelCheck):
         ("odd widths, 32-row tiles", 200, 130, 75, lambda: random_offsets(200, 16, gen)),
         ("skewed: half in one group, 8 empty", 768, 256, 176,
          fixed(*[0] * 9, 384, 440, 500, 560, 610, 650, 720, 768)),
+        ("K tail: D % 64 = 8", 300, 200, 136, lambda: random_offsets(300, 5, gen)),
+        ("groups straddling row tiles", 512, 128, 264, fixed(0, 70, 190, 333, 512)),
+        ("decode-sized groups", 96, 256, 384, lambda: random_offsets(96, 8, gen)),
     ]
     floats = (torch.float32, torch.bfloat16)
-    worst = 0.0
+    worst, ran = 0.0, {}
     for label, T, D, F, make_offs in cases:
         for dx in floats:
             for dw in floats:
@@ -1230,16 +1291,55 @@ def phase_gemm(dev, check: KernelCheck):
                 # leave NaN where the output will likely be allocated: rows
                 # outside every group must be zeroed by the kernel itself
                 torch.full((T * F,), float("nan"), device=dev)
-                got = tg.grouped_matmul(x, w, offs)
-                want = tg.grouped_matmul_reference(x, w, offs)
                 where = f"{label} ({str(dx)[6:]} x {str(dw)[6:]})"
+                got, variant = gemm_variant_run(x, w, offs, where)
+                ran[variant] = ran.get(variant, 0) + 1
+                want = tg.grouped_matmul_reference(x, w, offs)
                 worst = max(worst, check.hold_close("grouped_matmul", want, got, where))
                 lo, hi = int(offs[0]), int(offs[-1])
                 outside = torch.cat([got[:lo], got[hi:]])
                 if not torch.equal(outside, torch.zeros_like(outside)):
                     raise AssertionError(f"{where}: rows outside every group are not zero")
     log(f"  grouped_matmul: {len(cases)} cases x 4 dtype mixes within the float32 tolerance "
-        f"of the plain version (max_abs_err {worst:.3g}); rows outside every group zero")
+        f"of the plain version (max_abs_err {worst:.3g}); rows outside every group zero; "
+        f"variants {ran}")
+
+    # unaligned views keep PR 14's kernels; a 16-byte shift is aligned again
+    T, D, F, E = 160, 64, 136, 4
+    offs = random_offsets(T, E, gen)
+    for dx, shift in ((torch.bfloat16, 1), (torch.bfloat16, 8), (torch.float32, 1)):
+        x0 = torch.randn((T, D), generator=gen, device=dev).to(dx)
+        w0 = (torch.randn((E, D, F), generator=gen, device=dev) * 0.1).bfloat16()
+        x = torch.empty(T * D + shift, dtype=dx, device=dev)[shift:].view(T, D).copy_(x0)
+        w = torch.empty(E * D * F + shift, dtype=torch.bfloat16,
+                        device=dev)[shift:].view(E, D, F).copy_(w0)
+        where = f"a view shifted {shift} elements ({str(dx)[6:]} x bfloat16)"
+        got, variant = gemm_variant_run(x, w, offs, where)
+        check.hold_close("grouped_matmul", tg.grouped_matmul_reference(x0, w0, offs), got,
+                         where)
+        log(f"  {where}: {variant}")
+
+    # the split's edge values in f32 x, one a row, on 64- and 128-row tiles
+    specials = (1e30, 3.3e38, -3.3e38, 1e-30, 1e-40, -1e-42, float("inf"), -float("inf"),
+                float("nan"))
+    for T, E in ((96, 8), (512, 4)):
+        D, F = 128, 192
+        offs = random_offsets(T, E, gen)
+        x = torch.randn((T, D), generator=gen, device=dev)
+        w = (torch.randn((E, D, F), generator=gen, device=dev) * 0.1).bfloat16()
+        for i, v in enumerate(specials):
+            x[7 * i + 3, (5 * i) % D] = v
+        where = f"split edge values, T={T} E={E}"
+        got, variant = gemm_variant_run(x, w, offs, where)
+        want = tg.grouped_matmul_reference(x, w, offs)
+        if bool(torch.isfinite(want[7 * 6 + 3]).any()) or not bool(
+                torch.isfinite(want[7 * 1 + 3]).all()):
+            raise AssertionError(f"{where}: the reference rows are not as placed")
+        # its own tolerance, by row: the 3.3e38 rows' errors (relative ~1e-8)
+        # stay out of the kernels line's max_abs_err
+        err = same_non_finite_close_by_row(want, got, where)
+        log(f"  {where}: {variant}, inf and NaN rows as the reference's, max_abs_err "
+            f"{err:.3g} on the finite entries")
 
 
 def moe_config(arch: str):
@@ -1249,11 +1349,13 @@ def moe_config(arch: str):
 
 
 def gemm_bound(x, w, offs):
-    """(ms, bound_by, flops, bytes) of one grouped GEMM on these inputs: the
-    larger of the bytes (the grouped rows of x read once, the weights of the
-    non-empty experts read once, out written once as f32) over the memory
-    rate and 2 * rows * D * F over the bf16 tensor-core rate, or the f32 rate
-    when an operand is f32."""
+    """(ms, bound_by, flops, bytes, old_ms) of one grouped GEMM on these
+    inputs: the larger of the bytes (the grouped rows of x read once, the
+    weights of the non-empty experts read once, out written once as f32)
+    over the memory rate and the tensor-core work over the bf16 rate: 2 *
+    rows * D * F for bf16 x bf16, 3 * 2 * rows * D * F for an f32 x with
+    bf16 w (the three exact bf16 pieces of the split).  old_ms is PR 14's
+    bound, f32 work at the 67 TFLOP/s f32 rate, for any f32 operand."""
     o = torch.clamp(offs, 0, x.shape[0])
     rows = int(o[-1] - o[0])
     nonempty = int((o[1:] > o[:-1]).sum())
@@ -1262,9 +1364,12 @@ def gemm_bound(x, w, offs):
              + x.shape[0] * F * 4)
     flops = 2 * rows * D * F
     bf16 = x.dtype == w.dtype == torch.bfloat16
-    t_ops = flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3
+    pieces = 1 if bf16 else 3 if w.dtype == torch.bfloat16 else None
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations", flops, moved
+    t_old = max(t_bytes, flops / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S) * 1e3)
+    t_ops = (pieces * flops / BF16_FLOP_PER_S if pieces else flops / FP32_FLOP_PER_S) * 1e3
+    return (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            (pieces or 1) * flops, moved, t_old)
 
 
 def timed_ms(fn) -> float:
@@ -1297,6 +1402,33 @@ def grouped_mm_ms(x, w, offs):
     return None, "null: " + "; ".join(notes)
 
 
+def ffn_part_ms(md, ops, x, logits, w_up, w_down, k, E) -> dict:
+    """Device time of each part of the flipped FFN by CUDA events recorded
+    between them on the stream (a part that waits on the host counts that
+    wait): the median of FFN_PART_REPS runs after one warm-up."""
+    names = ("make_plan", "dispatch", "up GEMM", "silu", "down GEMM", "combine")
+    runs = []
+    for _ in range(FFN_PART_REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        plan = md.make_plan(logits, k, E)
+        ev[1].record()
+        xs = md.dispatch(x, plan, k)
+        ev[2].record()
+        up = ops.grouped_matmul(xs, w_up, plan.group_offsets)
+        ev[3].record()
+        h = torch.nn.functional.silu(up)
+        ev[4].record()
+        ys = ops.grouped_matmul(h, w_down, plan.group_offsets)
+        ev[5].record()
+        md.combine(ys, plan, k)
+        ev[6].record()
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
+        del plan, xs, up, h, ys
+    return {n: median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
+
+
 def moe_inputs(cfg, T: int, skew: bool, gen):
     """x ~ N(0,1), router [D, E] f32 and expert weights ~ N(0,1) * 0.02 in
     the configuration's dtype, router logits ``x.float() @ router``.  A
@@ -1324,7 +1456,7 @@ def moe_inputs(cfg, T: int, skew: bool, gen):
 
 
 def phase_moe(dev, check: KernelCheck):
-    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import GMM_VARIANTS, LAUNCHES, ops, reset_launches
     from repro_torch.kernels import grouped_matmul as tg
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.models.config import SHAPES
@@ -1336,7 +1468,7 @@ def phase_moe(dev, check: KernelCheck):
     assert torch.get_float32_matmul_precision() == "highest"
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
-    gemms, launches = [], 0
+    gemms, launches, wgmma_runs = [], 0, 0
     for label, arch, tokens, skew in MOE_RUNS:
         t_run = time.perf_counter()
         cfg = moe_config(arch)
@@ -1360,9 +1492,11 @@ def phase_moe(dev, check: KernelCheck):
         torch.cuda.synchronize()
         ffn_ms = (time.perf_counter() - t0) * 1e3
         n = LAUNCHES["grouped_matmul"]
-        if n != 2:
-            raise AssertionError(f"run {label}: grouped_matmul launched {n} times, expected 2")
+        if n != 2 or GMM_VARIANTS["wgmma"] != 2:
+            raise AssertionError(f"run {label}: grouped_matmul launched {n} times, by variant "
+                                 f"{GMM_VARIANTS}; expected 2, both wgmma")
         launches += n
+        wgmma_runs += GMM_VARIANTS["wgmma"]
         offs = plan.group_offsets
         sizes = offs[1:] - offs[:-1]
         n_empty, largest = int((sizes == 0).sum()), int(sizes.max())
@@ -1370,8 +1504,11 @@ def phase_moe(dev, check: KernelCheck):
             assert largest == T and n_empty >= 8, (largest, n_empty)
         assert out.shape == (T, D) and out.dtype == torch.float32
         assert bool(torch.isfinite(out).all()), f"run {label}: non-finite output"
-        log(f"  flipped FFN {ffn_ms:.3f} ms (host clock, first call); groups: largest "
-            f"{largest}, empty {n_empty}, mean {T * k / E:.1f}")
+        parts = ffn_part_ms(md, ops, x, logits, w_up, w_down, k, E)
+        log(f"  flipped FFN {ffn_ms:.3f} ms (host clock, first call); by CUDA events, median "
+            f"of {FFN_PART_REPS}: " + ", ".join(f"{p} {ms:.4f}" for p, ms in parts.items())
+            + f" ms (sum {sum(parts.values()):.4f}); groups: largest {largest}, empty "
+            f"{n_empty}, mean {T * k / E:.1f}")
 
         for name, a, w, got in (("up", xs, w_up, up), ("down", h, w_down, ys)):
             want, plain_ms = host_ms(lambda: tg.grouped_matmul_reference(a, w, offs))
@@ -1379,12 +1516,14 @@ def phase_moe(dev, check: KernelCheck):
             del want
             ms = timed_ms(lambda: tg.grouped_matmul(a, w, offs))
             lib_ms, lib_note = grouped_mm_ms(a, w, offs)
-            bound, by, flops, moved = gemm_bound(a, w, offs)
+            bound, by, flops, moved, old = gemm_bound(a, w, offs)
             gemms.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
             lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms"
-            log(f"  {name} ({str(a.dtype)[6:]} x {str(w.dtype)[6:]}): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.3f} ms, library {lib} ({lib_note}), bound {bound:.4f} ms "
-                f"by {by} ({flops} FLOP, {moved} B; {ms / bound:.1f}x), max_abs_err {err:.3g}")
+            log(f"  {name} ({str(a.dtype)[6:]} x {str(w.dtype)[6:]}, {tg.kernel_variant(a, w)}):"
+                f" kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib} ({lib_note}), "
+                f"bound {bound:.4f} ms by {by} ({flops} tensor-core FLOP, {moved} B; "
+                f"{ms / bound:.2f}x), PR 14's bound {old:.4f} ms ({ms / old:.2f}x), "
+                f"max_abs_err {err:.3g}")
         want = md.moe_ffn_reference(x, logits, w_up, w_down, k)
         err = close_err(want, out, f"run {label}: FFN vs moe_ffn_reference")
         del want
@@ -1392,6 +1531,7 @@ def phase_moe(dev, check: KernelCheck):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; run "
             f"{time.perf_counter() - t_run:.1f} s")
         del x, logits, w_up, w_down, xs, up, h, ys, out, plan
+    log(f"  all {wgmma_runs} main-path GEMMs ran gmm_wgmma_kernel")
     ops_share = sum(g["bound_ms"] for g in gemms if g["bound_by"] == "operations")
     bytes_share = sum(g["bound_ms"] for g in gemms if g["bound_by"] == "bytes")
     log(f"  kernels line: means over the {len(gemms)} GEMMs; library_ms null, since the down "

@@ -34,48 +34,50 @@
 //      zero-fill [0, offs[0]) and [offs[E], T) in strides, so the output
 //      needs no memset and no host sync.
 //
-// Two products, chosen on the host from the dtypes alone:
-//   - bf16 x bf16: gmm_mma_kernel, mma.sync m16n8k16 with float32
-//     accumulate.  A bf16 x bf16 product is exact in float32, so the tensor
-//     cores give the reference's products; only the order of the float32
-//     sums differs.  Tiles are staged as bf16 and read with ldmatrix.
-//   - any float32 operand: gmm_fma_kernel, float32 FMA on the SIMT pipe
-//     (never TF32, which would drop bits of an f32 operand the reference
-//     keeps), 8 x 8 or 2 x 8 outputs a thread.  Its tiles are staged as
-//     float32, so a bf16 operand is widened once, on its way in.
-// Row tiles are 32 rows when the mean group has at most 48 rows (a decode
-// step: a dozen rows an expert), else 128, so that a small group wastes
-// little of its tile.
+// Three variants, chosen on the host from the dtypes, the widths and the
+// base addresses alone (grouped_matmul_variant), each counted apart:
+//   - wgmma (grouped_matmul_sm90.cu): bf16 w with bf16 x, or with f32 x
+//     split exactly into three bf16 pieces, when TMA can address both
+//     tensors (rows of a multiple of 16 bytes, 16-byte-aligned bases).  The
+//     main path's GEMMs all take it; its note says what bounds it.
+//   - gmm_mma_kernel: any other bf16 x bf16 (odd widths, unaligned views),
+//     mma.sync m16n8k16 with float32 accumulate.  A bf16 x bf16 product is
+//     exact in float32, so the tensor cores give the reference's products;
+//     only the order of the float32 sums differs.  Tiles are staged as bf16
+//     and read with ldmatrix.
+//   - gmm_fma_kernel: the rest (f32 w, and f32 x at odd widths or unaligned),
+//     float32 FMA on the SIMT pipe (never TF32, which would drop bits of an
+//     f32 operand the reference keeps), 8 x 8 or 2 x 8 outputs a thread.  Its
+//     tiles are staged as float32, so a bf16 operand is widened once.
+// Their row tiles are 32 rows when the mean group has at most 48 rows (a
+// decode step: a dozen rows an expert), else 128, so that a small group
+// wastes little of its tile.  No variant falls back to another.
 //
 // Element offsets are 64-bit: w[e]'s base e*D*F passes 2^31 at widths the
 // repo's configurations reach (8.05e8 at mixtral-8x22b width, 7 experts in).
 //
-// Bound on the card: the larger of the bytes (x's grouped rows read once,
-// the weights of the non-empty experts read once, out written once as f32,
-// at 3.35 TB/s) and the operations 2 * rows * D * F (at 989 TFLOP/s when both
-// operands are bf16, 67 TFLOP/s when one is f32: a tensor core takes no f32
-// operand without dropping bits).  A decode step is bytes-bound: this
-// kernel reads each w[e] column strip once per row tile, so once an expert
-// when its group fits one tile, but with one stage of loads in flight it
-// does not keep enough bytes moving to reach the memory rate.  Prefill is
-// operations-bound: mma.sync reaches only part of the wgmma rate, and the
-// f32 x bf16 down projection runs on the 67 TFLOP/s f32 pipe by design.
-// wgmma with TMA multi-stage staging is the later redesign.
+// Bound on the card for these two kernels: the larger of the bytes (x's
+// grouped rows read once, the weights of the non-empty experts read once,
+// out written once as f32, at 3.35 TB/s) and the operations 2 * rows * D * F
+// (at 989 TFLOP/s when both operands are bf16, 67 TFLOP/s when one is f32 on
+// the FMA pipe).  They stage through registers with one load in flight and
+// use mma.sync or the f32 pipe, so they sit well above that bound (PERF.md);
+// they stay for the shapes that TMA cannot address.
 #include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "grouped_matmul.cuh"
+
 namespace {
+
+using gmm::clampi;
 
 constexpr int kThreads = 256;
 constexpr int BN = 128;  // output columns of a tile
 constexpr int kSmallTile = 32, kLargeTile = 128;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -103,48 +105,10 @@ __global__ void gmm_schedule_kernel(const int* __restrict__ offs, int* __restric
     if (e < E) tile_start[e] = carry + inc - c;
     carry += __shfl_sync(kFull, inc, 31);
   }
-  if (lane == 0) tile_start[E] = carry;
-}
-
-// The rows of this block's row tile: [row0, row0 + rows) of expert e.
-// Returns false for a spare tile, after zero-filling its share of the rows
-// outside every group ([0, lo0) then [hiE, T), every n_spare-th chunk of BM
-// rows, this column tile only).
-template <int BM>
-__device__ bool locate_tile(const int* __restrict__ offs, const int* __restrict__ tile_start,
-                            float* __restrict__ out, int T, int F, int E, int col0,
-                            int& e, int& row0, int& rows) {
-  const int tile = blockIdx.x;
-  const int total = tile_start[E];
-  if (tile >= total) {
-    const int lo0 = clampi(offs[0], 0, T);
-    const int hiE = max(clampi(offs[E], 0, T), lo0);
-    const long long n_out = (long long)lo0 + (T - hiE);
-    const int n_spare = gridDim.x - total;
-    for (long long chunk = tile - total; chunk * BM < n_out; chunk += n_spare) {
-      for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
-        const long long i = chunk * BM + idx / BN;
-        const int c = col0 + idx % BN;
-        if (i < n_out && c < F) {
-          const long long row = i < lo0 ? i : hiE + (i - lo0);
-          out[row * F + c] = 0.0f;
-        }
-      }
-    }
-    return false;
+  if (lane == 0) {
+    tile_start[E] = carry;
+    tile_start[E + 1] = 0;  // tiles handed out by gmm_wgmma_kernel's scheduler
   }
-  // the expert of this row tile: the last e with tile_start[e] <= tile
-  int a = 0, b = E - 1;
-  while (a < b) {
-    const int m = (a + b + 1) >> 1;
-    if (tile_start[m] <= tile) a = m; else b = m - 1;
-  }
-  e = a;
-  const int lo = clampi(offs[e], 0, T);
-  const int hi = clampi(offs[e + 1], 0, T);
-  row0 = lo + (tile - tile_start[e]) * BM;
-  rows = min(BM, hi - row0);
-  return true;
 }
 
 // ---------------------------------------------------------------- f32 FMA
@@ -174,7 +138,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int col0 = blockIdx.y * BN;
   int e, row0, rows;
-  if (!locate_tile<BM>(offs, tile_start, out, T, F, E, col0, e, row0, rows)) return;
+  if (!gmm::locate_tile<BM, BN, kThreads>(offs, tile_start, out, T, F, E, col0, e, row0, rows))
+    return;
   const TW* __restrict__ we = w + (size_t)e * D * F;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -344,7 +309,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int col0 = blockIdx.y * BN;
   int e, row0, rows;
-  if (!locate_tile<BM>(offs, tile_start, out, T, F, E, col0, e, row0, rows)) return;
+  if (!gmm::locate_tile<BM, BN, kThreads>(offs, tile_start, out, T, F, E, col0, e, row0, rows))
+    return;
   const __nv_bfloat16* __restrict__ we = w + (size_t)e * D * F;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -487,21 +453,39 @@ void launch_fma(bool small, dim3 grid, cudaStream_t s, const void* x, const void
 
 extern "C" {
 
-// dtype codes: 0 float32, 1 bfloat16.  tile_start is int32 scratch of E+1.
+// The variant that grouped_matmul_launch runs, from the dtypes (0 float32,
+// 1 bfloat16), the widths and the base addresses alone: 2 for
+// gmm_wgmma_kernel (bf16 x bf16, or f32 x with bf16 w, where TMA can
+// address both tensors: rows of a multiple of 16 bytes, 16-byte-aligned
+// bases, D, E > 0), 1 for gmm_mma_kernel (any other bf16 x bf16), 0 for
+// gmm_fma_kernel (any other mix).
+int grouped_matmul_variant(const void* x, const void* w, int D, int F, int E, int x_dtype,
+                           int w_dtype) {
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 && D > 0 && E > 0 &&
+                       F % 8 == 0 && D % (x_dtype == 1 ? 8 : 4) == 0;
+  if (w_dtype == 1 && aligned) return 2;
+  return x_dtype == 1 && w_dtype == 1 ? 1 : 0;
+}
+
+// dtype codes: 0 float32, 1 bfloat16.  tile_start is int32 scratch of E+2.
 int grouped_matmul_launch(const void* x, const void* w, const int* offs, int* tile_start,
                           float* out, int T, int D, int F, int E, int x_dtype, int w_dtype,
                           void* stream) {
   if (T == 0 || F == 0) return 0;
   if (x_dtype < 0 || x_dtype > 1 || w_dtype < 0 || w_dtype > 1 || E < 0 || D < 0)
     return (int)cudaErrorInvalidValue;
-  // 32-row tiles when the mean group has at most 48 rows
+  const int variant = grouped_matmul_variant(x, w, D, F, E, x_dtype, w_dtype);
+  // small tiles when the mean group has at most 48 rows
   const bool small = (long long)T <= 48LL * (E > 0 ? E : 1);
-  const int bm = small ? kSmallTile : kLargeTile;
+  const int bm = variant == 2 ? gmm_wgmma_bm(small) : small ? kSmallTile : kLargeTile;
   const long long nx = ((long long)T + bm - 1) / bm + E;
   const long long ny = ((long long)F + BN - 1) / BN;
   if (nx > INT_MAX || ny > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   gmm_schedule_kernel<<<1, 32, 0, s>>>(offs, tile_start, E, T, bm);
+  if (variant == 2)
+    return gmm_wgmma_run(x, w, offs, tile_start, out, T, D, F, E, x_dtype, small, stream);
   const dim3 grid((unsigned)nx, (unsigned)ny);
   switch (x_dtype * 2 + w_dtype) {
     case 0:

@@ -19,15 +19,18 @@ flix_insert     — TL-Bulk insertion, one thread block per bucket
 flix_delete     — TL-Bulk deletion, one thread block per bucket
                   (``csrc/flix_delete.cu``)
 grouped_matmul  — ragged grouped GEMM over expert-sorted rows, float32
-                  accumulate and output (``csrc/grouped_matmul.cu``)
+                  accumulate and output: TMA and wgmma for bf16 weights
+                  (``csrc/grouped_matmul_sm90.cu``), mma.sync or f32 FMA
+                  for the rest (``csrc/grouped_matmul.cu``)
 moe_dispatch    — the flipped MoE dispatch around it: route and sort by
                   expert, dispatch, combine, and the dense oracle
 _phases         — plain torch versions of the stripe phases of
                   ``csrc/flix_phases.cuh``
-_launch         — input checks, the launch call and the ``LAUNCHES`` counts
+_launch         — input checks, the launch call, the ``LAUNCHES`` counts
+                  and ``GMM_VARIANTS``, grouped_matmul's by variant
 _build          — nvcc build of ``csrc/`` into a ctypes-loaded library
 """
 
-from repro_torch.kernels._launch import LAUNCHES, reset_launches
+from repro_torch.kernels._launch import GMM_VARIANTS, LAUNCHES, reset_launches
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["GMM_VARIANTS", "LAUNCHES", "reset_launches"]

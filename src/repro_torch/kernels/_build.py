@@ -51,6 +51,7 @@ SIGNATURES = {
     "flix_delete_smem_bytes": ([_I, _I], _I),
     "flix_delete_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "grouped_matmul_launch": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "grouped_matmul_variant": ([_P, _P] + [_I] * 5, _I),
 }
 
 _lock = threading.Lock()

@@ -28,11 +28,15 @@ LAUNCHES = {
     "flix_range_scatter": 0,
     "grouped_matmul": 0,
 }
+# grouped_matmul's launches by the kernel they ran (csrc/grouped_matmul.cu's
+# grouped_matmul_variant); they sum to LAUNCHES["grouped_matmul"]
+GMM_VARIANTS = {"wgmma": 0, "mma": 0, "fma": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, GMM_VARIANTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def check(device: torch.device, names, tensors, dtypes=(torch.int32,)) -> None:

@@ -7,8 +7,18 @@ per-expert slice boundaries, and each expert, a bucket, pulls its
 contiguous slice.  :func:`grouped_matmul` runs ``csrc/grouped_matmul.cu``
 on the card: a one-warp schedule of each expert's row tiles, then one
 block per (row tile, column tile) that binary-searches its expert in that
-schedule and multiplies the expert's rows in float32.  On the CPU it runs
-:func:`grouped_matmul_reference`.
+schedule and multiplies the expert's rows with float32 sums.  On the CPU it
+runs :func:`grouped_matmul_reference`.
+
+The card picks one of three variants from the dtypes, the widths and the
+base addresses alone (:func:`kernel_variant`; the counts are
+``GMM_VARIANTS``): ``"wgmma"`` (``csrc/grouped_matmul_sm90.cu``: TMA and
+wgmma) for bf16 weights with bf16 or float32 ``x`` when TMA can address
+both tensors (``F`` a multiple of 8, ``D`` of 8 for bf16 ``x`` or of 4 for
+float32 ``x``, 16-byte-aligned bases); ``"mma"`` (``mma.sync``) for any
+other bf16 x bf16; ``"fma"`` (float32 FMA) for the rest.  A float32 ``x``
+reaches the tensor cores as the three exact bf16 pieces of
+:func:`split_bf16x3`.
 
 Two plain versions, because the reference package has two semantics for a
 row outside every group (``t < offs[0]`` or ``t >= offs[E]``):
@@ -30,10 +40,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import check, launch
+import ctypes
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels._launch import GMM_VARIANTS, check, launch
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/grouped_matmul.cu
+_VARIANTS = ("fma", "mma", "wgmma")  # grouped_matmul_variant's codes
+_HIGH_16 = -(1 << 16)  # 0xffff0000 as int32: a float32's bf16 truncation
 
 
 def check_inputs(x, w, group_offsets) -> None:
@@ -61,7 +76,8 @@ def grouped_matmul(x, w, group_offsets):
     out = torch.empty((T, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    tile_start = torch.empty((E + 1,), dtype=torch.int32, device=x.device)
+    tile_start = torch.empty((E + 2,), dtype=torch.int32, device=x.device)
+    variant = kernel_variant(x, w)
     launch(
         "grouped_matmul",
         "grouped_matmul_launch",
@@ -78,7 +94,38 @@ def grouped_matmul(x, w, group_offsets):
         _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[w.dtype],
     )
+    GMM_VARIANTS[variant] += 1
     return out
+
+
+def kernel_variant(x, w) -> str:
+    """The kernel that :func:`grouped_matmul` runs on these CUDA tensors:
+    ``"wgmma"``, ``"mma"`` or ``"fma"``, by the library's own rule."""
+    (_, D), (E, _, F) = x.shape, w.shape
+    code = load_library().grouped_matmul_variant(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()), D, F, E,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+    )
+    return _VARIANTS[code]
+
+
+def split_bf16x3(x):
+    """float32 ``x`` as three bfloat16 tensors ``hi, mid, lo`` whose float32
+    sum is ``x``, as the wgmma kernel splits its float32 operand:
+    ``hi = trunc_bf16(x)``, ``mid = trunc_bf16(x - hi)``,
+    ``lo = rn_bf16(x - hi - mid)``; for inf and NaN ``hi = x`` and
+    ``mid = lo = 0``.  The sum is bit-exact down to about ``2**-100`` in
+    magnitude; below, ``lo`` falls into bf16's subnormal range and the error
+    stays under ``2**-126``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16x3 takes float32, got {x.dtype}")
+    finite = torch.isfinite(x)
+    hi = torch.where(finite, (x.view(torch.int32) & _HIGH_16).view(torch.float32), x)
+    r1 = torch.where(finite, x - hi, torch.zeros_like(x))
+    mid = (r1.view(torch.int32) & _HIGH_16).view(torch.float32)
+    lo = r1 - mid
+    # hi and mid convert exactly; lo rounds to nearest even
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
 
 
 def grouped_matmul_reference(x, w, group_offsets):

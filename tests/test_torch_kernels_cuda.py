@@ -12,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import core as tcore  # noqa: E402
-from repro_torch.kernels import LAUNCHES, ops  # noqa: E402
+from repro_torch.kernels import GMM_VARIANTS, LAUNCHES, ops  # noqa: E402
 from repro_torch.kernels import flix_apply as fa  # noqa: E402
 from repro_torch.kernels import flix_delete as fd  # noqa: E402
 from repro_torch.kernels import flix_insert as fi  # noqa: E402
@@ -303,8 +303,22 @@ GEMM_CASES = {
     "odd_widths_small_tiles": (200, 130, 75, lambda r: _uniform_offs(r, 200, 16)),
     # half the rows in one group, 8 groups empty
     "skewed": (768, 256, 176, lambda r: [0] * 9 + [384, 440, 500, 560, 610, 650, 720, 768]),
+    # TMA-eligible widths (wgmma for bf16 weights): a K tail (D % 64 != 0),
+    # groups that straddle 64- and 128-row tiles, a decode-sized split
+    "k_tail": (300, 200, 136, lambda r: _uniform_offs(r, 300, 5)),
+    "straddle": (512, 128, 264, lambda r: [0, 70, 190, 333, 512]),
+    "decode_like": (96, 256, 384, lambda r: _uniform_offs(r, 96, 8)),
 }
 FLOATS = [torch.float32, torch.bfloat16]
+
+
+def _expected_variant(D, F, dx, dw, aligned=True):
+    """grouped_matmul's variant: wgmma for bf16 weights where TMA can
+    address both tensors, mma for other bf16 x bf16, fma for the rest."""
+    if dw == torch.bfloat16 and aligned and F % 8 == 0 and D % (8 if dx == torch.bfloat16
+                                                                else 4) == 0:
+        return "wgmma"
+    return "mma" if dx == dw == torch.bfloat16 else "fma"
 
 
 @pytest.mark.cuda
@@ -319,10 +333,13 @@ def test_grouped_matmul_matches_plain_on_card(cuda, case, dx, dw):
     # leave NaN in the memory the output will reuse: rows outside every group
     # must come out zero from the kernel, not from a fresh allocation
     torch.full((T * F,), float("nan"), device=cuda)
-    before = LAUNCHES["grouped_matmul"]
+    before, variants = LAUNCHES["grouped_matmul"], dict(GMM_VARIANTS)
     got = tg.grouped_matmul(x, w, o)
     torch.cuda.synchronize()
     assert LAUNCHES["grouped_matmul"] == before + 1
+    variant = _expected_variant(D, F, dx, dw)
+    assert tg.kernel_variant(x, w) == variant
+    assert GMM_VARIANTS == {**variants, variant: variants[variant] + 1}
     want = tg.grouped_matmul_reference(x, w, o)
     _assert_gemm_close(got, want)
     outside = torch.cat([got[: offs[0]], got[offs[-1]:]])
@@ -362,15 +379,59 @@ def test_flipped_moe_ffn_on_card_matches_dense_oracle(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dx", FLOATS)
 @pytest.mark.parametrize("shift", [1, 3, 8])
-def test_grouped_matmul_on_unaligned_views_on_card(cuda, shift):
-    """x and w as contiguous views whose data do not start on 16 bytes."""
+def test_grouped_matmul_on_unaligned_views_on_card(cuda, shift, dx):
+    """x and w as contiguous views whose data do not start on 16 bytes
+    (shift 8 bf16 elements is 16 bytes: aligned again).  An unaligned view
+    keeps PR 14's variants: mma for bf16 x bf16, fma for f32 x bf16."""
     rng = np.random.default_rng(shift)
     T, D, F, E = 160, 64, 136, 4
     offs = _uniform_offs(rng, T, E)
-    x0, w0, o = _gemm_inputs(rng, T, D, F, offs, torch.bfloat16, torch.bfloat16, cuda)
-    xb = torch.empty(T * D + shift, dtype=torch.bfloat16, device=cuda)
+    x0, w0, o = _gemm_inputs(rng, T, D, F, offs, dx, torch.bfloat16, cuda)
+    xb = torch.empty(T * D + shift, dtype=dx, device=cuda)
     wb = torch.empty(E * D * F + shift, dtype=torch.bfloat16, device=cuda)
     x = xb[shift:].view(T, D).copy_(x0)
     w = wb[shift:].view(E, D, F).copy_(w0)
-    _assert_gemm_close(tg.grouped_matmul(x, w, o), tg.grouped_matmul_reference(x0, w0, o))
+    variants = dict(GMM_VARIANTS)
+    got = tg.grouped_matmul(x, w, o)
+    variant = _expected_variant(D, F, dx, torch.bfloat16, aligned=shift == 8)
+    assert GMM_VARIANTS == {**variants, variant: variants[variant] + 1}
+    _assert_gemm_close(got, tg.grouped_matmul_reference(x0, w0, o))
+
+
+def _assert_same_non_finite_and_close_by_row(got, want):
+    """Where ``want`` is inf or NaN, ``got`` is the same; elsewhere within
+    ``rtol=1e-4`` and ``1e-4`` times the row's largest finite ``|want|``."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    row_scale = torch.where(fin, want.abs(), torch.zeros_like(want)).amax(1, keepdim=True)
+    err = (got - want).abs()
+    ok = ~fin | (err <= 1e-4 * want.abs() + 1e-4 * row_scale)
+    assert bool(ok.all()), float(torch.where(fin, err, torch.zeros_like(err)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E", [(96, 8), (512, 4)])  # 64- and 128-row tiles
+def test_grouped_matmul_split_edge_values_on_card(cuda, T, E):
+    """f32 x bf16 on wgmma through the three-piece split: huge, tiny,
+    subnormal, infinite and NaN entries of x, one a row, each row's
+    output finite or not exactly as the reference's."""
+    rng = np.random.default_rng(T)
+    D, F = 128, 192
+    offs = _uniform_offs(rng, T, E)
+    x, w, o = _gemm_inputs(rng, T, D, F, offs, torch.float32, torch.bfloat16, cuda)
+    specials = [1e30, 3.3e38, -3.3e38, 1e-30, 1e-40, -1e-42, float("inf"), -float("inf"),
+                float("nan")]
+    for i, v in enumerate(specials):
+        x[7 * i + 3, (5 * i) % D] = v
+    variants = dict(GMM_VARIANTS)
+    got = tg.grouped_matmul(x, w, o)
+    assert GMM_VARIANTS == {**variants, "wgmma": variants["wgmma"] + 1}
+    want = tg.grouped_matmul_reference(x, w, o)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(want[7 * 6 + 3]).any())  # the inf rows are not finite
+    assert bool(torch.isfinite(want[7 * 1 + 3]).all())  # 3.3e38 * w stays finite
+    _assert_same_non_finite_and_close_by_row(got, want)
