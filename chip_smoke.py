@@ -571,11 +571,8 @@ def phase_main(dev):
         g, pref, *_ = fa.range_slots(new_state, is_range, ops.key, ops.val, cfg.max_results)
         rargs = (g, pref, new_state.node_count, new_state.keys, new_state.vals)
         r_ms.append(event_ms(lambda: fa.flix_apply_range_pass(*rargs), 10))
-        n_ins, n_del = int(r.is_ins.sum()), int(r.is_del.sum())
         outs = fa.flix_apply_pass(*args)
-        moved = (active_row_bytes(state) + state.node_max.nbytes
-                 + 8 * n_ins + 4 * n_del + 6 * 4 * nb + ops.tag.nbytes + ops.key.nbytes
-                 + sum(o.nbytes for o in outs))
+        moved = stripe_pass_bytes(state, ops, r, outs)
         bounds.append(moved / HBM_BYTES_PER_S * 1e3)
         rbounds.append(gather_bytes(g, pref, npb) / HBM_BYTES_PER_S * 1e3)
         del outs
@@ -620,6 +617,16 @@ def phase_main(dev):
         "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_ms),
                                  plain_ms=rplain_ms, bound_ms=fmean(rbounds), err=e2),
     }
+
+
+def stripe_pass_bytes(state, ops, r, outs) -> int:
+    """Bytes a stripe pass must move: the rows that hold keys and the node
+    max row read, the batch's inserts (key and val), deletes, slice bounds
+    and op columns read, every output written once."""
+    n_ins, n_del = int(r.is_ins.sum()), int(r.is_del.sum())
+    return (active_row_bytes(state) + state.node_max.nbytes + 8 * n_ins + 4 * n_del
+            + 6 * 4 * state.num_buckets + ops.tag.nbytes + ops.key.nbytes
+            + sum(o.nbytes for o in outs))
 
 
 def active_row_bytes(state) -> int:

@@ -73,9 +73,10 @@ class ExecConfig:
 
     ``impl``         — ``"auto" | "fused" | "reference"`` executor choice.
     ``pipeline``     — the fused path's stripe kernel: ``"on"`` the staged
-                       one (``csrc/flix_apply_staged.cu``: persistent blocks,
-                       the next bucket's rows copied in by ``cp.async``
-                       while the current one merges), ``"off"`` the
+                       one (``csrc/flix_apply_staged.cu``: a warp per bucket
+                       in persistent blocks, the warp's next bucket's rows
+                       copied in by ``cp.async`` while the current one
+                       merges), ``"off"`` the
                        single-buffer one (a block per bucket), ``"auto"``
                        what :meth:`resolve_pipeline` fixes for the device.
                        Both compute the same function; on the CPU both run

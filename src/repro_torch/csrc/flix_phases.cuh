@@ -11,7 +11,10 @@
 //     ascending;
 //   * a warp owns one bucket and answers its slice of a sorted query batch
 //     (flix_query, flix_successor): node and in-node position are popcounts
-//     of warp ballots, the paper's tile vote.
+//     of warp ballots, the paper's tile vote.  The staged stripe kernel
+//     (flix_apply_staged.cu) is a warp per bucket too; it runs the stripe
+//     phases in its own warp form and shares only the per-element formulas
+//     here (region_of, chunk_dest, locate, lower_bound).
 //
 // Every worker finds its own slice of a sorted batch by binary search of the
 // bucket's fences (bucket_slice): the flipped routing of the paper, done by
@@ -282,8 +285,10 @@ inline int stripe_threads(int S) {
   return t < kStripeThreads ? t : kStripeThreads;
 }
 
-// Resident stripe blocks an SM should hold: with 256 threads that caps a
-// fused stripe kernel at 32 registers a thread (__launch_bounds__).
+// Resident stripe blocks an SM should hold: with 256 threads that caps the
+// block-per-bucket stripe kernel of flix_apply.cu at 32 registers a thread
+// (__launch_bounds__).  The warp-per-bucket staged kernel has no such cap:
+// the occupancy API sizes it from its shared memory.
 constexpr int kStripeBlocksPerSm = 8;
 
 // Load bucket b's stripe into A/Av and clear the merged stripe M/Mv.  With
@@ -520,7 +525,9 @@ __device__ __forceinline__ Located locate(const int* keys, const int* nmax, int 
 }
 
 // ---------------------------------------------------------------------------
-// the fused mixed-batch pass of one bucket (flix_apply's stripe kernels)
+// the fused mixed-batch pass of one bucket (flix_apply.cu's stripe kernel;
+// the staged kernel takes the same ApplyArgs and computes the same function
+// by warp)
 // ---------------------------------------------------------------------------
 
 // Inputs and outputs of a fused stripe pass: the pre-batch planes, the

@@ -5,7 +5,7 @@ ops             — the kernel entry points on a state, with the reference's
                   version on a CPU state), ``mode="ref"`` the core function
 flix_apply      — fused mixed-batch apply: merge + delete + post-update reads
                   in one thread block per bucket (``csrc/flix_apply.cu``) or
-                  in persistent blocks with cp.async-staged stripes
+                  one warp per bucket with cp.async-staged stripes
                   (``csrc/flix_apply_staged.cu``), plus the dense RANGE
                   gather
 flix_range      — standalone dense RANGE scans: a count kernel and the

@@ -1,7 +1,7 @@
 """Fused compute-to-bucket apply (port of ``repro/kernels/flix_apply.py``).
 
-A CUDA thread block does all of a bucket's work in one visit (the paper's
-flipped indexing, §4.1): it pulls its slices of the sorted batch,
+One worker does all of a bucket's work in one visit (the paper's flipped
+indexing, §4.1): it pulls its slices of the sorted batch,
 upsert-merges the inserts with original-node-region re-chunking, deletes
 with in-node and chain compaction, writes the new stripe and its metadata,
 and answers the bucket's POINT ops and in-bucket SUCCESSOR candidates
@@ -11,9 +11,11 @@ compute that one function:
   * ``csrc/flix_apply.cu`` (``pipeline="off"``): one block per bucket, the
     whole stripe copied in;
   * ``csrc/flix_apply_staged.cu`` (``pipeline="on"``, the counterpart of
-    the TPU's double-buffered ``_apply_kernel_pipelined``): persistent
-    blocks walk many buckets, and while one bucket is merged, ``cp.async``
-    copies the next bucket's rows that hold keys into a second buffer.
+    the TPU's double-buffered ``_apply_kernel_pipelined``): one warp per
+    bucket, the paper's mapping.  Each warp of persistent blocks walks many
+    buckets, and while one bucket is merged, ``cp.async`` copies the warp's
+    next bucket's rows that hold keys into the other slot of its ring; a
+    bucket with no insert and no delete writes its rows straight back.
 
 A second launch fills the dense RANGE output, one thread per slot (the
 gather of ``csrc/flix_range.cu``, shared with ``kernels/flix_range``).

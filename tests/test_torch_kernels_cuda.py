@@ -165,33 +165,162 @@ def test_update_kernels_match_plain_on_card(cuda, ns, npb):
         assert torch.equal(getattr(new, f), getattr(want, f)), f
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ns,npb", GEOMETRIES)
-def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb):
-    """The staged stripe kernel computes the single-buffer kernel's function:
-    a mixed batch on a state with emptied buckets, and an insert flood that
-    overflows a bucket (the pre-retry outputs equal too)."""
-    rng = np.random.default_rng(3 * ns + npb)
-    st, live = _state_with_holes(rng, ns, npb, cuda)
+# the staged kernel's geometries: GEOMETRIES and S = 8 (4-key nodes, 2 a
+# bucket), where most lanes of the bucket's warp idle
+STAGED_GEOMETRIES = GEOMETRIES + [(4, 2)]
+STAGED_CASES = ("mixed", "flood", "long_slices", "emptied_bucket", "delete_all",
+                "full_bucket", "above_max", "edge_keys")
+
+
+def _bucket_range(st, b):
+    """The keys bucket b holds: (mkba[b-1], mkba[b]]."""
+    mk = st.mkba.cpu().numpy()
+    return (int(mk[b - 1]) + 1 if b > 0 else 0), int(mk[b])
+
+
+def _sorted_ops(groups, device):
+    """A batch of one op per key from (tag, keys, vals or None) groups; vals
+    default to key + 1."""
+    t = np.concatenate([np.full(len(k), tag, np.int32) for tag, k, _ in groups])
+    k = np.concatenate([np.asarray(k, np.int64) for _, k, _ in groups])
+    v = np.concatenate([np.asarray(k, np.int64) + 1 if v is None else np.asarray(v, np.int64)
+                        for _, k, v in groups])
+    k, first = np.unique(k, return_index=True)
+    return tcore.make_ops(t[first], k.astype(np.int32), v[first].astype(np.int32),
+                          device=device)[0]
+
+
+def _full_bucket(rng, ns, npb, device):
+    """A state whose middle bucket has every row active and full (one row
+    at fill 1, then (npb - 1) * ns fresh keys through the reference engine),
+    and one fresh insert into it, which overflows."""
+    keys = np.sort(rng.choice(1 << 26, 1 << 15, replace=False)).astype(np.int32)
+    st = tcore.build(keys, keys ^ 0x33, node_size=ns, nodes_per_bucket=npb, fill=1.0,
+                     device=device)
+    b = st.num_buckets // 2
+    lo, hi = _bucket_range(st, b)
+    fresh = rng.choice(np.setdiff1d(np.arange(lo, hi + 1), keys), (npb - 1) * ns + 1,
+                       replace=False)
+    fill = _sorted_ops([(tcore.OP_INSERT, fresh[1:], None)], device)
+    st = tcore.apply_ops(st, fill, config=tcore.ExecConfig(impl="reference"))[0]
+    assert int(st.num_nodes[b]) == npb and int(st.node_count[b].sum()) == npb * ns
+    groups = [(tcore.OP_INSERT, fresh[:1], None), (tcore.OP_POINT, fresh[1:40], None),
+              (tcore.OP_SUCCESSOR, rng.integers(lo, hi + 1, 20), None)]
+
+    def premise(got, r):
+        assert int(got[5][b]) == 1 and int(got[5].sum()) == 1  # only b overflows
+
+    return st, groups, premise
+
+
+def _staged_case(rng, ns, npb, case, device):
+    """A state, a sorted batch and a check of the case's premise, for one
+    edge of the warp-per-bucket staged kernel."""
+    ins, dele, pt, succ = tcore.OP_INSERT, tcore.OP_DELETE, tcore.OP_POINT, tcore.OP_SUCCESSOR
+    st, live = _state_with_holes(rng, ns, npb, device)
+    S, nb = ns * npb, st.num_buckets
+    nn = st.num_nodes.cpu().numpy()
     b = int(np.searchsorted(st.mkba.cpu().numpy(), live[3000]))
-    lo, hi = int(st.mkba[b - 1]) + 1, int(st.mkba[b])
-    flood = rng.choice(np.arange(lo, hi + 1), ns * npb + 40, replace=False)
-    for case in ("mixed", "flood"):
-        if case == "mixed":
-            _, ops_ = _random_case(rng, 1 << 15, ns, npb, cuda)
-        else:
-            ik = np.unique(np.concatenate([flood, rng.integers(0, 1 << 26, 2000)]))
-            ops_, _ = tcore.make_ops(np.full(len(ik), tcore.OP_INSERT, np.int32),
-                                     ik.astype(np.int32), device=cuda)
-        args = list(fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)[0])
-        before = dict(LAUNCHES)
-        got = fa.flix_apply_staged_pass(st.num_nodes, *args)
-        torch.cuda.synchronize()
-        assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
-        _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
-        _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
-        if case == "flood":
+    lo, hi = _bucket_range(st, b)
+    premise = lambda got, r: None  # noqa: E731
+    if case == "mixed":
+        return st, _random_case(rng, 1 << 15, ns, npb, device)[1], premise
+    if case == "full_bucket":
+        st, groups, premise = _full_bucket(rng, ns, npb, device)
+    elif case == "flood":  # more inserts than the bucket has slots: the slice is cut at S
+        groups = [(ins, rng.choice(np.arange(lo, hi + 1), S + 40, replace=False), None),
+                  (ins, rng.integers(0, 1 << 26, 2000), None)]
+
+        def premise(got, r):
             assert int(got[5].max()) == 1
+
+    elif case == "long_slices":  # op slices of more than 64 and more than 32 ops
+        near = rng.choice(np.arange(lo, hi + 1), 103, replace=False)
+        lo2, hi2 = _bucket_range(st, b + 7)
+        row2 = st.keys[b + 7].cpu().numpy().reshape(-1)
+        groups = [(pt, near[:70], None), (succ, near[70:100], None), (ins, near[100:], None),
+                  (pt, rng.choice(np.arange(lo2, hi2 + 1), 40, replace=False), None),
+                  (dele, row2[row2 != EMPTY][:2], None)]
+
+        def premise(got, r):
+            n_ops = (r.ends - r.starts).cpu().numpy()
+            assert n_ops[b] > 64 and 32 < n_ops[b + 7] <= 64
+
+    elif case == "emptied_bucket":  # num_nodes = 0, then inserts
+        gone = np.nonzero(nn == 0)[0]
+        gone = [int(g) for g in gone[(gone > 0) & (gone < nb - 1)][:3]]
+        assert len(gone) == 3
+        groups = []
+        for g in gone:
+            l2, h2 = _bucket_range(st, g)
+            groups += [(ins, rng.choice(np.arange(l2, h2 + 1), ns + 3, replace=False), None),
+                       (pt, rng.integers(l2, h2 + 1, 5), None),
+                       (succ, rng.integers(l2, h2 + 1, 5), None)]
+
+        def premise(got, r):
+            assert all(int(got[4][g]) > 0 for g in gone)
+
+    elif case == "delete_all":  # every key of two buckets
+        groups = []
+        for bb in (b, b + 3):
+            row = st.keys[bb].cpu().numpy().reshape(-1)
+            l2, h2 = _bucket_range(st, bb)
+            groups += [(dele, row[row != EMPTY], None), (pt, rng.integers(l2, h2 + 1, 5), None),
+                       (succ, rng.integers(l2, h2 + 1, 5), None)]
+
+        def premise(got, r):
+            assert int(got[4][b]) == 0 and int(got[4][b + 3]) == 0
+
+    elif case == "above_max":  # inserts above the last node's max (the onn_c clamp)
+        mk = st.mkba.cpu().numpy()
+        picks = [bb for bb in range(1, nb - 1, max(1, nb // 40)) if nn[bb] > 0]
+        tops = np.array([int(st.node_max[bb, nn[bb] - 1]) for bb in picks], np.int32)
+        st = tcore.delete(st, torch.as_tensor(np.sort(tops), device=device))[0]
+        nn = st.num_nodes.cpu().numpy()
+        groups = [(ins, [tcore.MAX_VALID - 3], None)]
+        for bb, old in zip(picks, tops):
+            top = int(st.node_max[bb, nn[bb] - 1]) if nn[bb] else int(mk[bb - 1])
+            groups += [(ins, rng.choice(np.arange(top + 1, int(old) + 1), min(3, int(old) - top),
+                                        replace=False), None),
+                       (pt, [int(old)], None), (succ, [top + 1], None)]
+
+        def premise(got, r):
+            assert len(picks) >= 20
+
+    else:  # "edge_keys": keys 0 and MAX_VALID, values NOT_FOUND
+        miss = tcore.NOT_FOUND
+        groups = [(ins, [0, tcore.MAX_VALID], [miss, miss]),
+                  (ins, rng.integers(0, 1 << 26, 100), np.full(100, miss)),
+                  (pt, [1, tcore.MAX_VALID - 1, EMPTY], None),
+                  (succ, [2, tcore.MAX_VALID - 2], None), (pt, rng.choice(live, 50), None)]
+
+        def premise(got, r):
+            assert int(got[7].eq(miss).sum()) > 0
+
+    return st, _sorted_ops(groups, device), premise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STAGED_CASES)
+@pytest.mark.parametrize("ns,npb", STAGED_GEOMETRIES)
+def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, case):
+    """The warp-per-bucket staged kernel computes the single-buffer kernel's
+    function: a mixed batch on a state with emptied buckets, an insert flood
+    that overflows a bucket (the pre-retry outputs equal too), op slices
+    longer than a warp, inserts into emptied buckets and above the last
+    node's max, buckets emptied by deletes, a full bucket that one insert
+    overflows, the boundary keys and NOT_FOUND as a value."""
+    rng = np.random.default_rng(3 * ns + npb)
+    st, ops_, premise = _staged_case(rng, ns, npb, case, cuda)
+    args, r = fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)
+    args = list(args)
+    before = dict(LAUNCHES)
+    got = fa.flix_apply_staged_pass(st.num_nodes, *args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
+    _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
+    _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
+    premise(got, r)
 
 
 @pytest.mark.cuda
