@@ -19,7 +19,12 @@ line, and no phase catches its own failure:
                 flix_delete: at 2^18 keys in the default geometry and in 8x8
                 nodes, and at 2^16 keys in 64-node stripes, with mixed
                 hit/miss queries, boundary keys, emptied buckets, duplicate
-                delete keys and an insert batch that overflows a bucket.
+                delete keys and an insert batch that overflows a bucket;
+                flix_point_query also on its edges at S = 8 (4x2) and S =
+                2048 (32x64) with 2^20 keys: runs of several fence groups,
+                every fence and the key above it, 100 repeats of one key, a
+                bucket's keys three times over, emptied buckets, keys 0,
+                MAX_VALID and EMPTY, NOT_FOUND values, batches of 1 and 77.
                 flix_range's count and scatter: ranges on bucket fences,
                 hi <= lo, over emptied buckets, and a truncating budget.
                 grouped_matmul within its float32 tolerance, in f32, bf16
@@ -54,7 +59,10 @@ line, and no phase catches its own failure:
                 (benchmarks/successor.py).  Every call is held against the
                 port's core function on the card, every round must launch its
                 kernels, no insert may overflow, and the final state passes
-                the invariant checker;
+                the invariant checker.  Each query launch prints its time,
+                its bound and their ratio; each delete round also times its
+                pre-filter (a point query of the 2^22 keys) beside that
+                query's bound;
   6. serve    — ``KVPageIndex(node_size=32, nodes_per_bucket=16,
                 snapshot_window=2)`` on the card, holding 2^24 page keys
                 (2^16 sequence slots x 256 pages, 2^20 buckets) with a TTL
@@ -701,12 +709,52 @@ def kernel_ops_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
         f"versions; {emptied} emptied buckets, {int((got[5] > 0).sum())} overflowed")
 
 
+def query_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
+    """flix_point_query against its plain version and core.point_query on
+    its edges: runs of several fence groups, buckets emptied by deletes,
+    every fence and the key above it, a slice of 100 repeats of one key, a
+    whole bucket's keys three times over, keys 0, MAX_VALID and EMPTY, a
+    NOT_FOUND value, and batches of 1 and 77 queries."""
+    from repro_torch import core
+    from repro_torch.kernels import flix_query as fq
+
+    label = f"query edges, {n_keys} keys, ns={ns} npb={npb}"
+    keys = torch.unique(torch.randint(1, 1 << 28, (n_keys,), generator=gen, device=dev,
+                                      dtype=torch.int32))
+    keys[-1] = core.MAX_VALID
+    vals = keys ^ 0x33
+    vals[::97] = core.NOT_FOUND
+    state = core.build(torch.cat([keys, keys.new_zeros(1)]), torch.cat([vals, vals[:1]]),
+                       node_size=ns, nodes_per_bucket=npb)
+    state = core.delete(state, keys[5000:9000])[0]
+    nb = state.num_buckets
+    emptied = int((state.num_nodes == 0).sum())
+    assert emptied > 0, label
+    b = nb // 3
+    lo = int(state.mkba[b - 1]) + 1
+    mine = keys[(keys >= lo) & (keys <= int(state.mkba[b]))]
+    pick = torch.randint(0, keys.numel(), (20000,), generator=gen, device=dev)
+    top = torch.tensor([0, 1, core.MAX_VALID, core.EMPTY], dtype=torch.int32, device=dev)
+    q = sorted_i32(state.mkba, state.mkba + 1, keys[pick], keys[pick] + 1,
+                   keys[3000:3001].repeat(100), mine.repeat(3), keys[4990:9010], top)
+    planes = (state.keys, state.vals, state.node_max, state.mkba)
+    for qq in (q, q[:1], q[q.numel() // 2 : q.numel() // 2 + 77]):
+        got = fq.flix_point_query(*planes, qq)
+        check.hold("flix_point_query", [fq.flix_point_query_reference(*planes, qq)], [got],
+                   label)
+        check.hold("flix_point_query", [core.point_query(state, qq)], [got], f"{label} vs core")
+    log(f"  {label}: {nb} buckets ({emptied} emptied), {q.numel()} queries and batches of "
+        f"1 and 77: flix_point_query equals its plain version and core.point_query")
+
+
 def phase_kernel_ops(dev, check: KernelCheck):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     log("phase 3d: flix_point_query, flix_successor, flix_insert, flix_delete")
     for ns, npb, n_keys in ((32, 16, 1 << 18), (8, 8, 1 << 18), (32, 64, 1 << 16)):
         kernel_ops_case(dev, check, gen, ns, npb, n_keys)
+    for ns, npb, n_keys in ((4, 2, 1 << 20), (32, 64, 1 << 20)):  # S = 8 and S = 2048
+        query_edge_case(dev, check, gen, ns, npb, n_keys)
 
 
 def query_bytes(state, q, successor: bool) -> int:
@@ -835,6 +883,10 @@ def phase_fig9(dev, check: KernelCheck):
             upd_args = (state.keys, state.vals, state.mkba, dk)
             extra_bytes = 4 * FIG9_ROUND  # the batch's keys
             side_ms["delete pre-filter"] = event_ms(prefilter, 3)
+            side_ms["pre-filter point query"] = event_ms(
+                lambda: fq.flix_point_query(*planes, upd_k), 5)
+            side_ms["pre-filter bound"] = (query_bytes(state, upd_k, successor=False)
+                                           / HBM_BYTES_PER_S * 1e3)
         upd_ms = event_ms(lambda: upd_fn(*upd_args), 3)
         # node_max and the rows that hold keys read, stripes written whole,
         # node_count / node_max rows written, the fences read, num_nodes
@@ -852,18 +904,20 @@ def phase_fig9(dev, check: KernelCheck):
         s_ms = event_ms(lambda: fs.successor_pass(*planes, nxk, nxv, succ), 5)
         side_ms["successor fence rows"] = event_ms(lambda: fs.next_rows(*planes[:3]), 5)
         s_bytes = query_bytes(new_state, succ, successor=True)
+        q_bound = [b / HBM_BYTES_PER_S * 1e3 for b in q_bytes]
         times["flix_point_query"] += q_ms
-        bounds["flix_point_query"] += [b / HBM_BYTES_PER_S * 1e3 for b in q_bytes]
+        bounds["flix_point_query"] += q_bound
         times["flix_successor"].append(s_ms)
         bounds["flix_successor"].append(s_bytes / HBM_BYTES_PER_S * 1e3)
         log(f"  round {rnd} ({'insert' if ins else 'delete'} {FIG9_ROUND}): "
             f"{round_ms:.3f} ms for the round's five entry-point calls; "
             f"{upd_name} {upd_ms:.4f} ms (bound {bounds[upd_name][-1]:.4f} ms, {upd_bytes} B, "
             f"{FIG9_ROUND / upd_ms * 1e3:.6g} keys/s), core {core_upd_ms:.3f} ms; "
-            f"point all-hit {q_ms[0]:.4f} ms (bound {q_bytes[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-            f"{q_bytes[0]} B, {FIG9_QUERIES / q_ms[0] * 1e3:.6g} q/s), all-miss {q_ms[1]:.4f} ms "
-            f"(bound {q_bytes[1] / HBM_BYTES_PER_S * 1e3:.4f} ms, {q_bytes[1]} B, "
-            f"{FIG9_QUERIES / q_ms[1] * 1e3:.6g} q/s), core {core_q_ms:.3f} ms (all-hit); "
+            f"point all-hit {q_ms[0]:.4f} ms (bound {q_bound[0]:.4f} ms, {q_bytes[0]} B, "
+            f"{q_ms[0] / q_bound[0]:.2f}x, {FIG9_QUERIES / q_ms[0] * 1e3:.6g} q/s), all-miss "
+            f"{q_ms[1]:.4f} ms (bound {q_bound[1]:.4f} ms, {q_bytes[1]} B, "
+            f"{q_ms[1] / q_bound[1]:.2f}x, {FIG9_QUERIES / q_ms[1] * 1e3:.6g} q/s), "
+            f"core {core_q_ms:.3f} ms (all-hit); "
             f"successor {s_ms:.4f} ms (bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
             f"{s_bytes} B, {FIG9_SUCC / s_ms * 1e3:.6g} q/s), core {core_s_ms:.3f} ms; "
             + "".join(f"{k} {v:.4f} ms; " for k, v in side_ms.items())

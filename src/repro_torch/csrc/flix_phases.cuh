@@ -10,15 +10,18 @@
 //     which give the same ranks because every sequence searched here is
 //     ascending;
 //   * a warp owns one bucket and answers its slice of a sorted query batch
-//     (flix_query, flix_successor): node and in-node position are popcounts
-//     of warp ballots, the paper's tile vote.  The staged stripe kernel
+//     (flix_successor): node and in-node position are popcounts of warp
+//     ballots, the paper's tile vote.  The staged stripe kernel
 //     (flix_apply_staged.cu) is a warp per bucket too; it runs the stripe
 //     phases in its own warp form and shares only the per-element formulas
-//     here (region_of, chunk_dest, locate, lower_bound).
+//     here (region_of, chunk_dest, locate, lower_bound).  The point-query
+//     kernel (flix_query.cu) keeps its own device functions: a warp owns a
+//     run of buckets and answers a lane per query.
 //
 // Every worker finds its own slice of a sorted batch by binary search of the
 // bucket's fences (bucket_slice): the flipped routing of the paper, done by
-// the bucket itself.
+// the bucket itself.  flix_query.cu searches once per run of buckets
+// instead, and takes each bucket's end from the queries it reads.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,27 +3,41 @@
 // Replaces the TPU kernel repro/kernels/flix_query.py:_query_kernel (with its
 // one-hot MXU gather _exact_gather_i32), launched by flix_point_query_pallas.
 //
-// One warp per bucket, eight buckets per block.  The warp finds its slice of
-// the sorted queries by binary search of its two fences (the paper's flipped
-// routing); a bucket with no queries exits at once.  For each query of the
-// slice it votes: the node is the popcount of a ballot over node_max < q,
-// the position the popcount of a ballot over the node's keys < q, and one
-// lane writes the value or NOT_FOUND.  Each query belongs to exactly one
-// bucket, so no output is written twice.  Queries above the last fence
-// belong to no bucket; the wrapper fills them with NOT_FOUND first.  The
-// TPU kernel's (window, bucket-block) grid with clamped scalar prefetch and
-// its one-hot gathers have no counterpart: the warp reads the rows it needs.
+// Persistent warps, a run of buckets each, a lane per query.  The grid holds
+// as many warps as the card keeps resident (the occupancy API times the SMs);
+// warp w owns the contiguous buckets [w * run, (w + 1) * run), run at least
+// kRunMin, so each warp routes once: one warp-cooperative 32-ary search of
+// the sorted queries (32 pivots a round, a ballot narrows the range 32x:
+// five dependent loads for 2^24 queries) finds the first query above the
+// run's lower fence.  From there the warp walks its queries in windows of
+// 32, lane l taking query p + l, against the run's fences held 32 at a time
+// in lanes (a group).  Each lane finds its query's bucket by a binary search
+// over the group's fences through shuffles; the lanes whose query lies past
+// the group end the window, and the next window starts at the first of them,
+// so every query is answered once, by the warp that owns its bucket, and a
+// bucket's end is where the queries say it is.  Each lane then answers its
+// own query as ref.flix_point_query_ref does: node = count of the bucket's
+// node_max row below q (clamped to npb - 1), pos = count of that node's keys
+// below q, a hit where pos < ns and the key at pos is q.  The counts read
+// the rows through L1 in 16-byte loads where the rows are 16-byte aligned,
+// all independent, so a window costs three dependent trips (node_max row,
+// key row, value), and the next window's queries and the next group's
+// fences are loaded before them.  The window's results go out in one
+// coalesced store.  The run that holds the last bucket also answers the
+// queries above the last fence (misses), so the kernel writes every output.
+// The TPU kernel's (window, bucket-block) grid with clamped scalar prefetch
+// and its one-hot gathers have no counterpart.
 //
 // Bound on the card: bytes.  Each query read once and each result written
 // once (8 bytes a query), the fences, and for the buckets and nodes that
 // these queries touch their node_max rows, node key rows and the values of
 // the hits.  At the main path's shapes (2^24 sorted queries on 2^20 buckets
 // of 16 x 32 slots) that is 0.27-0.45 GB (all-miss to all-hit), 0.08-0.13
-// ms at 3.35 TB/s; chip_smoke.py computes it from each run's queries.  The design reads each
-// touched row from device memory once per warp and lets the queries of one
-// bucket hit it in L1; the two routing searches per bucket are its extra
-// cost.
+// ms at 3.35 TB/s; chip_smoke.py computes it from each run's queries.
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
 
 #include "flix_phases.cuh"
 
@@ -31,32 +45,110 @@ namespace {
 
 using namespace flix;
 
-constexpr int kThreads = 256;  // 8 warps: 8 buckets per block
+constexpr int kThreads = 256;  // 8 warps a block
+constexpr int kRunMin = 64;    // fewest buckets a warp owns (two fence groups)
 
-__global__ void flix_query_kernel(const int* __restrict__ keys,
-                                  const int* __restrict__ vals,
-                                  const int* __restrict__ node_max,
-                                  const int* __restrict__ mkba,
-                                  const int* __restrict__ q, int* __restrict__ out,
-                                  int nq, int nb, int npb, int ns) {
-  const int b = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+// Number of entries of ascending a[0, n) at or below x, by the whole warp:
+// while more than 32 entries are left, lane l reads the pivot ending the
+// l-th of 32 equal steps and a ballot keeps the step holding the answer.
+// Every lane must call it; all get the count.
+__device__ int warp_upper_bound32(const int* __restrict__ a, int n, int x, int lane) {
+  long long lo = 0, hi = n;  // the answer lies in [lo, hi]; a[lo, hi) is unread
+  while (hi - lo > 32) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long at = lo + (lane + 1) * step - 1;
+    const int c = __popc(__ballot_sync(kFull, at < hi && a[at] <= x));
+    hi = min(lo + (c + 1) * step - 1, hi);
+    lo = min(lo + c * step, hi);
+  }
+  const long long at = lo + lane;
+  return (int)lo + __popc(__ballot_sync(kFull, at < hi && a[at] <= x));
+}
+
+// Number of the group's fences below x, where lane j holds fence j
+// (ascending, EMPTY past the group): a binary search over shuffles.  Every
+// lane must call it, each with its own x.
+__device__ __forceinline__ int fences_below(int fence, int x) {
+  int i = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) i += __shfl_sync(kFull, fence, i + s - 1) < x ? s : 0;
+  return i + (__shfl_sync(kFull, fence, i) < x);
+}
+
+// Number of entries of row[0, n) below x, read by one lane: 16-byte loads
+// when vec (the row 16-byte aligned and n a multiple of 4).
+__device__ __forceinline__ int count_below(const int* __restrict__ row, int n, int x,
+                                           bool vec) {
+  int c = 0;
+  if (vec) {
+    const int4* r4 = reinterpret_cast<const int4*>(row);
+#pragma unroll 8
+    for (int j = 0; j < n / 4; ++j) {
+      const int4 v = __ldg(r4 + j);
+      c += (v.x < x) + (v.y < x) + (v.z < x) + (v.w < x);
+    }
+  } else {
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) c += __ldg(row + j) < x;
+  }
+  return c;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flix_query_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
+                      const int* __restrict__ node_max, const int* __restrict__ mkba,
+                      const int* __restrict__ q, int* __restrict__ out, int nq, int nb,
+                      int npb, int ns, int run) {
   const int lane = threadIdx.x & 31;
-  if (b >= nb) return;  // a whole warp leaves together
-  const int2 sl = warp_bucket_slice(mkba, b, q, nq, lane);
-  if (sl.x >= sl.y) return;  // a bucket with no queries terminates at once
-  const size_t S = (size_t)npb * ns;
-  const int* kb = keys + b * S;
-  const int* vb = vals + b * S;
-  const int* mb = node_max + (size_t)b * npb;
-  for (int i = sl.x; i < sl.y; ++i) {
-    const int x = q[i];
-    const WarpLocated l = warp_locate(kb, mb, npb, ns, x, lane);
-    if (lane == 0) {
-      const size_t at = (size_t)l.node * ns + l.pos;
-      out[i] = l.raw_pos < ns && kb[at] == x ? vb[at] : kMiss;
+  const long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (w * run >= nb) return;  // a whole warp leaves together
+  const int r0 = (int)(w * run), r1 = (int)min((long long)nb, w * run + run);
+  const bool vec_n = (npb & 3) == 0 && (reinterpret_cast<uintptr_t>(node_max) & 15) == 0;
+  const bool vec_s = (ns & 3) == 0 && (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+
+  int p = r0 == 0 ? 0 : warp_upper_bound32(q, nq, mkba[r0 - 1], lane);
+  int g = r0;  // first bucket of the fence group
+  int fence = lane < r1 - g ? mkba[g + lane] : kEmpty;
+  int x = p + lane < nq ? q[p + lane] : kEmpty;
+  while (p < nq) {
+    const int gn = min(32, r1 - g);
+    const bool tail = g + gn == nb;  // the group holds the last bucket
+    const int idx = fences_below(fence, x);
+    // a lane answers its query when the query lies in the group, or past
+    // the last fence (a miss); owners are a prefix of the sorted window
+    const unsigned own_m = __ballot_sync(kFull, p + lane < nq && (idx < gn || tail));
+    const int n_own = own_m == kFull ? 32 : __ffs(~own_m) - 1;
+    const bool leave = n_own < 32;  // the group's queries end in this window
+    // in flight while this window is answered: the next window, and the
+    // next group's fences when this window leaves the group
+    const int pn = p + n_own;
+    const int xn = pn + lane < nq ? q[pn + lane] : kEmpty;
+    int fn = fence;
+    if (leave) fn = lane < r1 - g - 32 ? mkba[g + 32 + lane] : kEmpty;
+    if (lane < n_own) {
+      int v = kMiss;
+      if (idx < gn) {
+        const int b = g + idx;
+        const int nidx = count_below(node_max + (size_t)b * npb, npb, x, vec_n);
+        const size_t row = ((size_t)b * npb + min(nidx, npb - 1)) * ns;
+        const int pos = count_below(keys + row, ns, x, vec_s);
+        if (pos < ns && __ldg(keys + row + pos) == x) v = __ldg(vals + row + pos);
+      }
+      out[p + lane] = v;
+    }
+    p = pn;
+    x = xn;
+    if (leave) {
+      g += 32;
+      if (g >= r1) break;
+      fence = fn;
     }
   }
 }
+
+// resident warps of flix_query_kernel, by device (0: not asked yet)
+constexpr int kMaxDevices = 64;
+std::atomic<long long> resident_warps[kMaxDevices];
 
 }  // namespace
 
@@ -65,11 +157,33 @@ extern "C" {
 int flix_query_launch(const int* keys, const int* vals, const int* node_max,
                       const int* mkba, const int* q, int* out, int nq, int nb, int npb,
                       int ns, void* stream) {
-  if (nq == 0 || nb == 0) return 0;
-  const long long threads = (long long)nb * 32;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  flix_query_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      keys, vals, node_max, mkba, q, out, nq, nb, npb, ns);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (nq == 0) return 0;
+  if (nb == 0) return (int)cudaMemsetAsync(out, 0xff, (size_t)nq * sizeof(int), s);  // all -1
+  int dev = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  // the resident warps share the buckets in contiguous runs; their number
+  // depends on the kernel and the device alone, so it is asked once a device
+  long long resident = resident_warps[dev].load(std::memory_order_relaxed);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flix_query_kernel,
+                                                           kThreads, 0)) != cudaSuccess)
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = (long long)per_sm * sms * (kThreads / 32);
+    resident_warps[dev].store(resident, std::memory_order_relaxed);
+  }
+  long long run = (nb + resident - 1) / resident;
+  if (run < kRunMin) run = kRunMin;
+  const long long warps = (nb + run - 1) / run;
+  const int blocks = (int)((warps + kThreads / 32 - 1) / (kThreads / 32));
+  flix_query_kernel<<<blocks, kThreads, 0, s>>>(keys, vals, node_max, mkba, q, out, nq, nb,
+                                                npb, ns, (int)run);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,8 @@ flix_apply      — fused mixed-batch apply: merge + delete + post-update reads
                   gather
 flix_range      — standalone dense RANGE scans: a count kernel and the
                   gather as the scatter (``csrc/flix_range.cu``)
-flix_query      — flipped point queries, one warp per bucket
-                  (``csrc/flix_query.cu``)
+flix_query      — flipped point queries, one warp per run of buckets and
+                  a lane per query (``csrc/flix_query.cu``)
 flix_successor  — flipped successor queries with the suffix-min fence rows
                   (``csrc/flix_successor.cu``)
 flix_insert     — TL-Bulk insertion, one thread block per bucket

@@ -1,11 +1,12 @@
 """Flipped point queries (port of ``repro/kernels/flix_query.py``; paper §3.3).
 
-:func:`flix_point_query` runs one CUDA warp per bucket (``csrc/flix_query.cu``):
-the warp binary-searches its fences in the sorted queries for its slice,
-exits at once when the slice is empty, and answers each query of the slice
-by two ballots (node, then in-node position).  On the CPU it runs
-:func:`flix_point_query_reference`, the port of the reference oracle
-``repro/kernels/ref.py:flix_point_query_ref``.
+:func:`flix_point_query` runs ``csrc/flix_query.cu``: persistent warps, each
+owning a contiguous run of buckets, find the run's first query by one
+32-ary search of the sorted batch, then answer its queries in windows of
+32, a lane per query (bucket among the run's fences held in lanes, node and
+in-node position by compare-counts of the rows).  The kernel writes every
+output.  On the CPU it runs :func:`flix_point_query_reference`, the port of
+the reference oracle ``repro/kernels/ref.py:flix_point_query_ref``.
 
 The TPU kernel's tiling knobs ``block_q``/``block_b`` have no counterpart.
 """
@@ -48,7 +49,7 @@ def flix_point_query(keys3d, vals3d, node_max, mkba, sorted_queries):
         return flix_point_query_reference(*planes, sorted_queries)
     nb, npb, ns = keys3d.shape
     qn = sorted_queries.shape[0]
-    out = torch.full((qn,), NOT_FOUND, dtype=torch.int32, device=keys3d.device)
+    out = torch.empty((qn,), dtype=torch.int32, device=keys3d.device)
     launch(
         "flix_point_query",
         "flix_query_launch",

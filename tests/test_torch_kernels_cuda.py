@@ -165,9 +165,10 @@ def test_update_kernels_match_plain_on_card(cuda, ns, npb):
         assert torch.equal(getattr(new, f), getattr(want, f)), f
 
 
-# the staged kernel's geometries: GEOMETRIES and S = 8 (4-key nodes, 2 a
-# bucket), where most lanes of the bucket's warp idle
-STAGED_GEOMETRIES = GEOMETRIES + [(4, 2)]
+# the edge cases' geometries (the staged stripe kernel's and the point-query
+# kernel's): GEOMETRIES and S = 8 (4-key nodes, 2 a bucket), where most
+# lanes of a bucket's warp idle; S = 2048 is (32, 64)
+EDGE_GEOMETRIES = GEOMETRIES + [(4, 2)]
 STAGED_CASES = ("mixed", "flood", "long_slices", "emptied_bucket", "delete_all",
                 "full_bucket", "above_max", "edge_keys")
 
@@ -302,7 +303,7 @@ def _staged_case(rng, ns, npb, case, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", STAGED_CASES)
-@pytest.mark.parametrize("ns,npb", STAGED_GEOMETRIES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
 def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, case):
     """The warp-per-bucket staged kernel computes the single-buffer kernel's
     function: a mixed batch on a state with emptied buckets, an insert flood
@@ -321,6 +322,180 @@ def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, ca
     _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
     _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
     premise(got, r)
+
+
+# ---------------------------------------------------------------------------
+# the point-query kernel's edge cases (tests/test_torch_query_cases.py holds
+# the same cases' plain version against the JAX reference on the CPU)
+# ---------------------------------------------------------------------------
+
+QUERY_CASES = ("long_slices", "one_bucket", "emptied_buckets", "fences", "edge_keys",
+               "not_found_value", "nq_1", "nq_ragged", "nq_below_warps", "every_bucket")
+QUERY_BUCKETS = 320  # buckets of every case's state, whatever the geometry
+# the fewest buckets a warp of csrc/flix_query.cu owns (kRunMin): at
+# QUERY_BUCKETS the kernel runs 5 warps of two fence groups each
+RUN_MIN = 64
+
+
+def _query_state(rng, ns, npb, device, edge_keys=False, miss_vals=False):
+    """QUERY_BUCKETS buckets built at fill 0.5, then fresh keys inserted so
+    that bucket b holds (0, p/2, p+1, 2 ns)[b % 4] more than its p: chains
+    of one to several nodes.  Values are key ^ 0x33 (fresh: key ^ 0x55);
+    ``edge_keys`` stores keys 0 and MAX_VALID, ``miss_vals`` gives every
+    third fresh key the value NOT_FOUND."""
+    p = max(1, ns // 2)
+    keys = np.sort(rng.choice(1 << 26, QUERY_BUCKETS * p, replace=False)).astype(np.int64)
+    if edge_keys:
+        keys[0], keys[-1] = 0, tcore.MAX_VALID
+    st = tcore.build(keys, keys ^ 0x33, node_size=ns, nodes_per_bucket=npb, device=device)
+    assert st.num_buckets == QUERY_BUCKETS
+    mk = st.mkba.cpu().numpy().astype(np.int64)
+    lows = np.concatenate([[0], mk[:-1] + 1])
+    fresh = []
+    for b in range(QUERY_BUCKETS):
+        m = min((0, p // 2, p + 1, 2 * ns)[b % 4], ns * npb - p)
+        cand = np.unique(rng.integers(lows[b], mk[b] + 1, 4 * m + 8))
+        fresh.append(np.setdiff1d(cand, keys)[:m])
+    fresh = np.concatenate(fresh)
+    fv = fresh ^ 0x55
+    if miss_vals:
+        fv[::3] = tcore.NOT_FOUND
+    st, stats = tcore.insert(st, torch.as_tensor(fresh.astype(np.int32), device=device),
+                             torch.as_tensor(fv.astype(np.int32), device=device))
+    assert int(stats["overflowed_buckets"]) == 0 and not bool(st.needs_restructure)
+    return st
+
+
+def _stored(st):
+    """The state's live keys, ascending, and their values."""
+    k, v = st.keys.cpu().numpy().reshape(-1), st.vals.cpu().numpy().reshape(-1)
+    live = k != EMPTY
+    order = np.argsort(k[live], kind="stable")
+    return k[live][order], v[live][order]
+
+
+def _slices(st, q):
+    """Queries per bucket (searchsorted left on the fences); the last entry
+    counts the queries above the last fence."""
+    b = np.searchsorted(st.mkba.cpu().numpy(), q, side="left")
+    return np.bincount(b, minlength=st.num_buckets + 1)
+
+
+def query_case(ns, npb, case, device):
+    """A state, a sorted int32 query batch and a check of the case's premise
+    (called with the state and the batch), for one edge of the point-query
+    kernel; the same inputs on every device."""
+    rng = np.random.default_rng(1000 * QUERY_CASES.index(case) + 10 * ns + npb)
+    st = _query_state(rng, ns, npb, device, edge_keys=case == "edge_keys",
+                      miss_vals=case == "not_found_value")
+    nb = st.num_buckets
+    live, lv = _stored(st)
+
+    def around(bs, n):  # n random keys in each bucket of bs, hits and misses
+        out = []
+        for b in bs:
+            lo, hi = _bucket_range(st, b)
+            mine = live[(live >= lo) & (live <= hi)]
+            out += [rng.integers(lo, hi + 1, n)] + ([rng.choice(mine, n)] if len(mine) else [])
+        return np.concatenate(out)
+
+    if case == "long_slices":  # one slice over 64 (one key repeated), one over 32
+        lo, hi = _bucket_range(st, 37)
+        k37 = live[(live >= lo) & (live <= hi)]
+        q = np.concatenate([np.repeat(k37[:1], 70), around([101], 20), around(range(0, 300, 9), 2)])
+
+        def premise(st, q):
+            c = _slices(st, q)
+            assert c[37] > 64 and 32 < c[101] <= 64
+
+    elif case == "one_bucket":  # every query in bucket 150: each key three times, misses
+        lo, hi = _bucket_range(st, 150)
+        q = np.concatenate([np.repeat(live[(live >= lo) & (live <= hi)], 3),
+                            rng.integers(lo, hi + 1, 60)])
+
+        def premise(st, q):
+            assert np.count_nonzero(_slices(st, q)) == 1 and len(q) > 64
+
+    elif case == "emptied_buckets":  # every key of buckets 10-13 and 200 deleted
+        gone = [10, 11, 12, 13, 200]
+        dead = np.concatenate([live[(live >= _bucket_range(st, b)[0])
+                                    & (live <= _bucket_range(st, b)[1])] for b in gone])
+        st = tcore.delete(st, torch.as_tensor(np.sort(dead).astype(np.int32), device=device))[0]
+        q = np.concatenate([dead, around(gone + [9, 14, 199, 201], 6)])
+
+        def premise(st, q):
+            nn = st.num_nodes.cpu().numpy()
+            assert all(nn[b] == 0 for b in gone) and all(_slices(st, q)[b] > 0 for b in gone)
+
+    elif case == "fences":  # mkba[b] and mkba[b] + 1 (EMPTY after the last fence)
+        mk = st.mkba.cpu().numpy().astype(np.int64)
+        q = np.concatenate([mk, mk + 1])
+
+        def premise(st, q):
+            assert np.isin(st.mkba.cpu().numpy(), q).all() and int(q.max()) == EMPTY
+
+    elif case == "edge_keys":  # keys 0 and MAX_VALID stored; EMPTY - 1 is MAX_VALID
+        q = np.concatenate([[0, 0, 1, tcore.MAX_VALID - 1, tcore.MAX_VALID, EMPTY - 1, EMPTY],
+                            around([0, nb - 1, 160], 5)])
+
+        def premise(st, q):
+            assert {0, tcore.MAX_VALID} <= set(_stored(st)[0][[0, -1]].tolist())
+
+    elif case == "not_found_value":  # stored values equal to NOT_FOUND
+        q = np.concatenate([live[lv == tcore.NOT_FOUND][::8], around(range(0, nb, 7), 3)])
+
+        def premise(st, q):
+            k, v = _stored(st)
+            assert np.isin(k[v == tcore.NOT_FOUND], q).sum() > 10
+
+    elif case == "nq_1":
+        q = live[len(live) // 2 : len(live) // 2 + 1]
+
+        def premise(st, q):
+            assert len(q) == 1
+
+    elif case == "nq_ragged":  # 77 queries: two windows and a part
+        q = np.concatenate([rng.choice(live, 40), rng.integers(0, 1 << 26, 37)])
+
+        def premise(st, q):
+            assert len(q) % 32 and len(q) > 64
+
+    elif case == "nq_below_warps":  # 3 queries, in the runs of three of the five warps
+        q = np.concatenate([around([b], 1)[:1] for b in (10, 150, 300)])
+
+        def premise(st, q):
+            runs = np.searchsorted(st.mkba.cpu().numpy(), q, side="left") // RUN_MIN
+            assert len(q) < st.num_buckets // RUN_MIN and len(set(runs.tolist())) == len(q)
+
+    else:  # "every_bucket": each slice non-empty, so windows straddle every run and group
+        mk = st.mkba.cpu().numpy().astype(np.int64)
+        q = np.concatenate([mk, around(range(nb), 1)])
+
+        def premise(st, q):
+            assert _slices(st, q)[:nb].min() > 0
+
+    return st, np.sort(np.asarray(q, np.int64)).astype(np.int32), premise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QUERY_CASES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
+def test_query_kernel_edge_cases_on_card(cuda, ns, npb, case):
+    """The run-per-warp point-query kernel equals its plain version and
+    core.point_query byte for byte: slices over 32 and 64 queries, every
+    query in one bucket, buckets emptied by deletes, queries at and just
+    above the fences, keys 0 / MAX_VALID / EMPTY, NOT_FOUND as a stored
+    value, one query, a ragged batch, fewer queries than warps, and a
+    query in every bucket."""
+    st, q, premise = query_case(ns, npb, case, cuda)
+    premise(st, q)
+    planes = (st.keys, st.vals, st.node_max, st.mkba, torch.as_tensor(q, device=cuda))
+    before = LAUNCHES["flix_point_query"]
+    got = fq.flix_point_query(*planes)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_point_query"] == before + 1
+    assert torch.equal(got, fq.flix_point_query_reference(*planes)), case
+    assert torch.equal(got, tcore.point_query(st, planes[-1])), case
 
 
 @pytest.mark.cuda

@@ -12,33 +12,16 @@ and the bound.  ``--dense`` adds one expert holding every row (a dense
 GEMM) against ``torch.matmul`` (cuBLAS, bf16 output) and
 ``torch._grouped_mm``.  It needs a card and exits non-zero without one.
 """
-import argparse
-import sys
-from pathlib import Path
+from tree_bench import build, open_tree
 
-ROOT = Path(__file__).resolve().parent.parent
-
-ap = argparse.ArgumentParser()
-ap.add_argument("--src", default=str(ROOT / "src"))
-ap.add_argument("--tag", default="tree")
-ap.add_argument("--dense", action="store_true")
-args = ap.parse_args()
+args, cs = open_tree("torch_gmm_bench", ("--dense", {"action": "store_true"}))
 
 import torch  # noqa: E402
-
-if not torch.cuda.is_available():
-    sys.exit("torch_gmm_bench: no CUDA device available")
-sys.path.insert(0, str(ROOT))
-import chip_smoke as cs  # noqa: E402
-
-sys.path.insert(0, args.src)  # after chip_smoke, which puts this checkout's src first
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import grouped_matmul as tg  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.models.config import SHAPES  # noqa: E402
 
-assert Path(tg.__file__).resolve().is_relative_to(Path(args.src).resolve()), tg.__file__
-_build.build()
+build(args, tg)
 torch.backends.cuda.matmul.allow_tf32 = False
 variant = getattr(tg, "kernel_variant", lambda a, w: "-")
 gen = torch.Generator(device="cuda")
