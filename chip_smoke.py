@@ -25,6 +25,13 @@ line, and no phase catches its own failure:
                 every fence and the key above it, 100 repeats of one key, a
                 bucket's keys three times over, emptied buckets, keys 0,
                 MAX_VALID and EMPTY, NOT_FOUND values, batches of 1 and 77.
+                flix_insert and flix_delete also on their edges at 32x16,
+                8x8, 32x64 and 4x2 with 2^20 keys: a flood past cap, slices
+                longer than the rings stage, emptied buckets, a bucket
+                deleted whole, a full bucket that one more key overflows,
+                inserts above the last node max, keys 0 and MAX_VALID, a
+                slice repeated past cap, NOT_FOUND values, batches of 0 and
+                1.
                 flix_range's count and scatter: ranges on bucket fences,
                 hi <= lo, over emptied buckets, and a truncating budget.
                 grouped_matmul within its float32 tolerance, in f32, bf16
@@ -62,7 +69,9 @@ line, and no phase catches its own failure:
                 the invariant checker.  Each query launch prints its time,
                 its bound and their ratio; each delete round also times its
                 pre-filter (a point query of the 2^22 keys) beside that
-                query's bound;
+                query's bound; each round also times the staged stripe
+                kernel on its keys as an insert-only or delete-only batch
+                of ops (its update path in every bucket);
   6. serve    — ``KVPageIndex(node_size=32, nodes_per_bucket=16,
                 snapshot_window=2)`` on the card, holding 2^24 page keys
                 (2^16 sequence slots x 256 pages, 2^20 buckets) with a TTL
@@ -637,13 +646,30 @@ def stripe_pass_bytes(state, ops, r, outs) -> int:
             + sum(o.nbytes for o in outs))
 
 
+def live_nodes(state) -> int:
+    """Nodes that hold keys (``node_max`` not EMPTY)."""
+    from repro_torch.core.state import EMPTY
+
+    return int((state.node_max != EMPTY).sum())
+
+
 def active_row_bytes(state) -> int:
     """Bytes of the node rows (keys and vals) that hold keys: all that a
     pass over the stripes must read of them, since ``node_max`` marks the
     rest as empty.  The pass still writes every stripe whole."""
-    from repro_torch.core.state import EMPTY
+    return 8 * state.node_size * live_nodes(state)
 
-    return 8 * state.node_size * int((state.node_max != EMPTY).sum())
+
+def update_bytes(state, extra_bytes: int, reads_node_max: bool) -> int:
+    """Bytes an insert or delete pass must move besides its batch
+    (``extra_bytes``): num_nodes, the fences and the rows that hold keys
+    read, and for an insert (``reads_node_max``) their node_max entries,
+    which give the merge its regions (a delete needs none); stripes written
+    whole, node_count / node_max rows and num_nodes written."""
+    nb, live = state.num_buckets, live_nodes(state)
+    reads = 8 * state.node_size * live + (4 * live if reads_node_max else 0) + 8 * nb
+    writes = state.keys.nbytes + state.vals.nbytes + 2 * state.node_max.nbytes + 4 * nb
+    return reads + writes + extra_bytes
 
 
 def sorted_i32(*parts):
@@ -678,7 +704,7 @@ def kernel_ops_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
     planes = (state.keys, state.vals, state.node_max, state.mkba)
     present = fq.flix_point_query_reference(*planes, raw) != core.NOT_FOUND
     dk = torch.sort(torch.where(present, raw, core.EMPTY), stable=True).values
-    args = (state.keys, state.vals, state.mkba, dk)
+    args = (state.num_nodes, state.keys, state.vals, state.mkba, dk)
     check.hold("flix_delete", fd.flix_delete_reference(*args), fd.flix_delete_pass(*args), label)
     state = kops.flix_delete(state, raw)
     emptied = int((state.num_nodes == 0).sum())
@@ -701,7 +727,7 @@ def kernel_ops_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
     flood = lo + torch.randperm(hi - lo + 1, generator=gen, device=dev)[: cap + 40]
     ik = torch.unique(torch.cat([rand(20000), flood.to(torch.int32), edge]))
     iv = rand(ik.numel(), 1 << 30)
-    args = (state.keys, state.vals, state.node_max, state.mkba, ik, iv)
+    args = (state.num_nodes, state.keys, state.vals, state.node_max, state.mkba, ik, iv)
     got = fi.flix_insert_pass(*args)
     check.hold("flix_insert", fi.flix_insert_reference(*args), got, label)
     assert int(got[5][b]) == 2, (label, int(got[5][b]))  # pieces and the cut at cap
@@ -747,6 +773,110 @@ def query_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
         f"1 and 77: flix_point_query equals its plain version and core.point_query")
 
 
+def update_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
+    """flix_insert and flix_delete against their plain versions on their
+    edges, on a state with more buckets than the card holds warps (so every
+    warp's ring turns over): a flood of cap + 40 keys into one bucket
+    (overflow 2), slices longer than the rings stage (32), buckets emptied
+    by deletes and inserts into them, every key of two buckets deleted, a
+    full bucket that one insert overflows, inserts above buckets' last node
+    max, keys 0 and MAX_VALID upserted and deleted, a full bucket's keys
+    repeated past cap in the delete batch, NOT_FOUND as a stored and an
+    upserted value, and batches of 0 and 1."""
+    from repro_torch import core
+    from repro_torch.kernels import flix_delete as fd
+    from repro_torch.kernels import flix_insert as fi
+    from repro_torch.kernels import flix_query as fq
+
+    label = f"update edges, {n_keys} keys, ns={ns} npb={npb}"
+    S = ns * npb
+    keys = torch.unique(torch.randint(1, 1 << 28, (n_keys,), generator=gen, device=dev,
+                                      dtype=torch.int32))
+    keys[-1] = core.MAX_VALID
+    keys = torch.cat([keys.new_zeros(1), keys])
+    vals = keys ^ 0x33
+    vals[1::97] = core.NOT_FOUND
+    state = core.build(keys, vals, node_size=ns, nodes_per_bucket=npb)
+    state = core.delete(state, keys[5000:9000])[0]
+    nb = state.num_buckets
+    nn = state.num_nodes.cpu()
+
+    def fresh(st, b, n):  # n keys of bucket b's range that it does not hold
+        lo, hi = int(st.mkba[b - 1]) + 1, int(st.mkba[b])
+        cand = lo + torch.randperm(hi - lo + 1, generator=gen, device=dev)[: n + S]
+        cand = cand[~torch.isin(cand, st.keys[b].flatten())][:n].to(torch.int32)
+        assert cand.numel() == n, (label, b, n)
+        return cand
+
+    b_flood, b_long, b_full, b_all = nb // 2, nb // 2 + 7, nb // 4, nb // 5
+    gone = torch.nonzero(state.num_nodes == 0)[:, 0]
+    gone = gone[(gone > 0) & (gone < nb - 1)][:3].tolist()
+    assert len(gone) == 3 and int(nn[b_full]) == 1, label
+    assert all(nn[b] > 0 for b in (b_flood, b_long, b_all, b_all + 1)), label
+    # a full bucket: one node at build, then every slot through core.insert
+    fill = fresh(state, b_full, S - int(state.node_count[b_full].sum()))
+    state = core.insert(state, torch.sort(fill).values, torch.sort(fill).values)[0]
+    # buckets whose top key is deleted, so that their fence lies above the max
+    tops = torch.arange(nb // 8, nb // 8 + 400, 4, device=dev)
+    tops = tops[(state.node_count[tops].sum(1) > 1)
+                & ~torch.isin(tops, torch.tensor([b_flood, b_long, b_full, b_all, b_all + 1],
+                                                 device=dev))]
+    old = state.node_max[tops, state.num_nodes[tops].long() - 1]
+    state = core.delete(state, torch.sort(old).values)[0]
+    core.check_invariants(state)
+    assert int(state.num_nodes[b_full]) == npb and int(state.node_count[b_full].sum()) == S
+
+    live = state.keys[state.keys != core.EMPTY]
+    lv = state.vals[state.keys != core.EMPTY]
+    pick = live[torch.randint(0, live.numel(), (100,), generator=gen, device=dev)]
+    rand = torch.randint(1, 1 << 28, (20000,), generator=gen, device=dev, dtype=torch.int32)
+    ins = [(torch.tensor([0, core.MAX_VALID], dtype=torch.int32, device=dev),
+            torch.tensor([11, 12], dtype=torch.int32, device=dev)),
+           (pick, torch.full_like(pick, core.NOT_FOUND)),  # upserts to NOT_FOUND
+           (fresh(state, b_flood, S + 40), None), (fresh(state, b_long, 40), None),
+           (fresh(state, b_full, 1), None), (old, None), (rand, None)]
+    ins += [(fresh(state, b, min(ns + 3, S)), None) for b in gone]
+    ik = torch.cat([k for k, _ in ins])
+    iv = torch.cat([v if v is not None else k * 3 + 1 for k, v in ins])
+    ik, order = torch.sort(ik, stable=True)
+    iv = iv[order]
+    first = torch.cat([ik.new_ones(1, dtype=torch.bool), ik[1:] != ik[:-1]])
+    ik, iv = ik[first].contiguous(), iv[first].contiguous()  # the first of each key wins
+
+    full = state.keys[b_full].flatten()
+    every = torch.cat([state.keys[b].flatten() for b in (b_all, b_all + 1)])
+    raw = sorted_i32(full.repeat(2 + 33 // S), every[every != core.EMPTY],
+                     torch.tensor([0, core.MAX_VALID], dtype=torch.int32, device=dev),
+                     live[lv == core.NOT_FOUND][:50], keys[5000:5100],  # absent now
+                     live[torch.randint(0, live.numel(), (20000,), generator=gen, device=dev)],
+                     rand[:2000])
+    planes = (state.keys, state.vals, state.node_max, state.mkba)
+    present = fq.flix_point_query_reference(*planes, raw) != core.NOT_FOUND
+    dk = torch.sort(torch.where(present, raw, core.EMPTY), stable=True).values
+
+    per_bucket = torch.bincount(torch.searchsorted(state.mkba, dk), minlength=nb + 1)
+    assert int(per_bucket[b_full]) > max(S, 32) and bool(present[raw == 0].all()), label
+    for n in (ik.numel(), 0, 1):
+        args = (state.num_nodes, state.keys, state.vals, state.node_max, state.mkba, ik[:n],
+                iv[:n])
+        got = fi.flix_insert_pass(*args)
+        check.hold("flix_insert", fi.flix_insert_reference(*args), got, f"{label}, {n} inserts")
+        if n > 1:
+            flow = got[5].cpu()
+            assert (int(flow[b_flood]), int(flow[b_full])) == (2, 1), (label, flow[b_flood])
+            assert all(int(got[4][b]) > 0 for b in gone), label
+    for n in (dk.numel(), 0, 1):
+        args = (state.num_nodes, state.keys, state.vals, state.mkba, dk[:n])
+        got = fd.flix_delete_pass(*args)
+        check.hold("flix_delete", fd.flix_delete_reference(*args), got, f"{label}, {n} deletes")
+        if n > 1:
+            assert int(got[4][b_all]) == 0 and 0 < int(got[2][b_full].sum()) < S, label
+            nf = live[lv == core.NOT_FOUND][:50]
+            assert bool(torch.isin(nf, got[0]).all()), label  # never deleted
+    log(f"  {label}: {nb} buckets, {ik.numel()} inserts and {dk.numel()} deletes (and "
+        f"batches of 0 and 1): flix_insert and flix_delete equal their plain versions")
+
+
 def phase_kernel_ops(dev, check: KernelCheck):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -755,6 +885,8 @@ def phase_kernel_ops(dev, check: KernelCheck):
         kernel_ops_case(dev, check, gen, ns, npb, n_keys)
     for ns, npb, n_keys in ((4, 2, 1 << 20), (32, 64, 1 << 20)):  # S = 8 and S = 2048
         query_edge_case(dev, check, gen, ns, npb, n_keys)
+    for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2)):
+        update_edge_case(dev, check, gen, ns, npb, 1 << 20)
 
 
 def query_bytes(state, q, successor: bool) -> int:
@@ -785,6 +917,7 @@ def phase_fig9(dev, check: KernelCheck):
     """The paper's Fig. 9 round schedule through the kernel entry points."""
     from repro_torch import core
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flix_apply as fa
     from repro_torch.kernels import flix_delete as fd
     from repro_torch.kernels import flix_insert as fi
     from repro_torch.kernels import flix_query as fq
@@ -869,7 +1002,8 @@ def phase_fig9(dev, check: KernelCheck):
         # the kernels alone on this round's inputs (re-launched, not counted)
         if ins:
             upd_name, upd_fn = "flix_insert", fi.flix_insert_pass
-            upd_args = (state.keys, state.vals, state.node_max, state.mkba, upd_k, upd_v)
+            upd_args = (state.num_nodes, state.keys, state.vals, state.node_max, state.mkba,
+                        upd_k, upd_v)
             extra_bytes = 8 * FIG9_ROUND + 4 * nb  # the batch's keys and vals, overflow
         else:
             upd_name, upd_fn = "flix_delete", fd.flix_delete_pass
@@ -880,7 +1014,7 @@ def phase_fig9(dev, check: KernelCheck):
                 return torch.sort(torch.where(present, upd_k, core.EMPTY), stable=True).values
 
             dk = prefilter()
-            upd_args = (state.keys, state.vals, state.mkba, dk)
+            upd_args = (state.num_nodes, state.keys, state.vals, state.mkba, dk)
             extra_bytes = 4 * FIG9_ROUND  # the batch's keys
             side_ms["delete pre-filter"] = event_ms(prefilter, 3)
             side_ms["pre-filter point query"] = event_ms(
@@ -888,11 +1022,15 @@ def phase_fig9(dev, check: KernelCheck):
             side_ms["pre-filter bound"] = (query_bytes(state, upd_k, successor=False)
                                            / HBM_BYTES_PER_S * 1e3)
         upd_ms = event_ms(lambda: upd_fn(*upd_args), 3)
-        # node_max and the rows that hold keys read, stripes written whole,
-        # node_count / node_max rows written, the fences read, num_nodes
-        # written
-        upd_bytes = (active_row_bytes(state) + state.node_max.nbytes + state.keys.nbytes
-                     + state.vals.nbytes + 2 * state.node_max.nbytes + 8 * nb + extra_bytes)
+        upd_bytes = update_bytes(state, extra_bytes, reads_node_max=ins)
+        # the staged stripe kernel on the same keys as an insert-only or a
+        # delete-only batch of ops: its update path in every bucket
+        sops, _ = core.make_ops(torch.full_like(upd_k, core.OP_INSERT if ins else core.OP_DELETE),
+                                upd_k, upd_v)
+        sargs = (state.num_nodes, *fa.stripe_inputs(state, sops.tag, sops.key, sops.val)[0])
+        side_ms["staged kernel, same keys"] = event_ms(
+            lambda: fa.flix_apply_staged_pass(*sargs), 3)
+        del sops, sargs
         times[upd_name].append(upd_ms)
         bounds[upd_name].append(upd_bytes / HBM_BYTES_PER_S * 1e3)
         planes = (new_state.keys, new_state.vals, new_state.node_max, new_state.mkba)

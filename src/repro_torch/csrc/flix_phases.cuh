@@ -1,9 +1,10 @@
-// Per-bucket phases of FliX, as device functions shared by every kernel.
+// Per-bucket phases of FliX, as device functions shared by the kernels.
 //
-// Two kinds of worker:
-//   * a thread block owns one bucket stripe in shared memory (flix_apply,
-//     flix_insert, flix_delete).  The phases are the formulas of the JAX
-//     reference (repro/kernels/flix_apply.py _stripe_body,
+// Two kinds of worker here:
+//   * a thread block owns one bucket stripe in shared memory: the stripe
+//     kernel of flix_apply.cu, and nothing else since the insert and delete
+//     kernels became warp-per-bucket.  The block phases are the formulas of
+//     the JAX reference (repro/kernels/flix_apply.py _stripe_body,
 //     repro/kernels/flix_insert.py _insert_kernel, repro/kernels/flix_delete.py
 //     _delete_kernel, repro/core/insert.py _merge_one_bucket) with the TPU's
 //     O(S^2) compare-count masks replaced by block scans and binary searches,
@@ -11,17 +12,16 @@
 //     ascending;
 //   * a warp owns one bucket and answers its slice of a sorted query batch
 //     (flix_successor): node and in-node position are popcounts of warp
-//     ballots, the paper's tile vote.  The staged stripe kernel
-//     (flix_apply_staged.cu) is a warp per bucket too; it runs the stripe
-//     phases in its own warp form and shares only the per-element formulas
-//     here (region_of, chunk_dest, locate, lower_bound).  The point-query
-//     kernel (flix_query.cu) keeps its own device functions: a warp owns a
-//     run of buckets and answers a lane per query.
-//
-// Every worker finds its own slice of a sorted batch by binary search of the
-// bucket's fences (bucket_slice): the flipped routing of the paper, done by
-// the bucket itself.  flix_query.cu searches once per run of buckets
-// instead, and takes each bucket's end from the queries it reads.
+//     ballots, the paper's tile vote, and the warp finds its slice by binary
+//     search of the bucket's fences (warp_bucket_slice), the flipped routing
+//     of the paper done by the bucket itself.
+// The staged stripe kernel and the insert and delete kernels
+// (flix_apply_staged.cu, flix_insert.cu, flix_delete.cu) are a warp per
+// bucket too; they run the stripe phases in the warp form of flix_warp.cuh
+// and share only the per-element formulas here (region_of, chunk_dest,
+// locate, lower_bound) and the ApplyArgs of the fused pass.  The point-query
+// kernel (flix_query.cu) keeps its own device functions: a warp owns a run
+// of buckets and answers a lane per query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,16 +59,9 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int x) {
 // ---------------------------------------------------------------------------
 
 // Bucket b's slice [start, end) of the ascending batch a[0, n): the entries
-// in (mkba[b-1], mkba[b]] (bucket 0 has no lower fence).  Equal to
-// repro/core/batch.py bucket_slices.
-__device__ __forceinline__ int2 bucket_slice(const int* mkba, int b, const int* a, int n) {
-  const int start = b == 0 ? 0 : upper_bound(a, n, mkba[b - 1]);
-  const int end = upper_bound(a, n, mkba[b]);
-  return make_int2(start, max(end, start));
-}
-
-// bucket_slice computed by two lanes of a warp at once and broadcast to all
-// 32 lanes.  Every lane of the warp must call it.
+// in (mkba[b-1], mkba[b]] (bucket 0 has no lower fence), equal to
+// repro/core/batch.py bucket_slices.  Two lanes of a warp search at once and
+// broadcast to all 32 lanes; every lane of the warp must call it.
 __device__ __forceinline__ int2 warp_bucket_slice(const int* mkba, int b, const int* a,
                                                   int n, int lane) {
   int x = 0;
@@ -210,16 +203,14 @@ __device__ __forceinline__ int chunk_dest(int rank, int r, const int* m_j, const
   return slot < npb ? slot * ns + (rr - start) : npb * ns;
 }
 
-// Shared-memory layout of one bucket's stripe pass.  A merge pass (apply,
-// insert) uses every buffer; a delete pass only A, Av, M, Mv, X, Slot, Cnt,
-// Warp and Scalar.
+// Shared-memory layout of one bucket's block stripe pass (flix_apply.cu).
 struct Stripe {
   int* A;       // [S] stripe keys (chain order); apply: later the result
   int* Av;      // [S]
   int* B;       // [S] the bucket's insert slice (sorted), at most cap = S
   int* Bv;      // [S]
   int* K;       // [S] kept stripe keys, compacted (sorted)
-  int* M;       // [S] merged stripe; delete: the result
+  int* M;       // [S] merged stripe
   int* Mv;      // [S]
   int* X;       // [S+1] scan buffer
   int* Nmax;    // [npb] input node max; apply: later the output's
@@ -236,11 +227,6 @@ struct Stripe {
 __host__ __device__ inline int merge_smem_ints(int npb, int ns) {
   const int S = npb * ns;
   return 2 * S + 2 * S + S + 2 * S + (S + 1) + 7 * npb + 32 + 8;
-}
-
-__host__ __device__ inline int delete_smem_ints(int npb, int ns) {
-  const int S = npb * ns;
-  return 2 * S + 2 * S + (S + 1) + 2 * npb + 32 + 8;
 }
 
 __device__ inline Stripe carve_merge(int* smem, int npb, int ns) {
@@ -260,21 +246,6 @@ __device__ inline Stripe carve_merge(int* smem, int npb, int ns) {
   s.Fj = s.Sj + npb;
   s.Base = s.Fj + npb;
   s.Slot = s.Base + npb;
-  s.Cnt = s.Slot + npb;
-  s.Warp = s.Cnt + npb;
-  s.Scalar = s.Warp + 32;
-  return s;
-}
-
-__device__ inline Stripe carve_delete(int* smem, int npb, int ns) {
-  const int S = npb * ns;
-  Stripe s = {};
-  s.A = smem;
-  s.Av = s.A + S;
-  s.M = s.Av + S;
-  s.Mv = s.M + S;
-  s.X = s.Mv + S;
-  s.Slot = s.X + S + 1;
   s.Cnt = s.Slot + npb;
   s.Warp = s.Cnt + npb;
   s.Scalar = s.Warp + 32;
@@ -303,7 +274,7 @@ __device__ inline void load_stripe(const Stripe& s, const int* __restrict__ keys
                                    int ns) {
   const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
   const size_t base = (size_t)b * S;
-  if (t < 4) s.Scalar[t] = 0;  // Scalar[4..7] are the caller's
+  if (t < 4) s.Scalar[t] = 0;
   __syncthreads();
   for (int i = t; i < S; i += T) {
     s.A[i] = keys[base + i];
@@ -467,19 +438,6 @@ __device__ inline void compact_phase(const Stripe& s, const int* src, const int*
       dst[d] = src[i];
       dstv[d] = srcv[i];
     }
-  }
-  __syncthreads();
-}
-
-// Node counts of a stripe whose rows are already packed (Cnt[j] = keys of
-// row j that are not EMPTY), and the number of non-empty rows in
-// Scalar[3].  Ends with a barrier.
-__device__ inline void count_rows(const Stripe& s, const int* src, int npb, int ns) {
-  for (int j = threadIdx.x; j < npb; j += blockDim.x) {
-    int c = 0;
-    for (int i = 0; i < ns; ++i) c += src[j * ns + i] != kEmpty;
-    s.Cnt[j] = c;
-    if (c > 0) atomicAdd(&s.Scalar[3], 1);
   }
   __syncthreads();
 }

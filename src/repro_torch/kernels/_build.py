@@ -47,9 +47,9 @@ SIGNATURES = {
     "flix_query_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "flix_successor_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "flix_insert_smem_bytes": ([_I, _I], _I),
-    "flix_insert_launch": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    "flix_insert_launch": ([_P] * 13 + [_I] * 3 + [_P], _I),
     "flix_delete_smem_bytes": ([_I, _I], _I),
-    "flix_delete_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "flix_delete_launch": ([_P] * 10 + [_I] * 3 + [_P], _I),
     "grouped_matmul_launch": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "grouped_matmul_variant": ([_P, _P] + [_I] * 5, _I),
 }

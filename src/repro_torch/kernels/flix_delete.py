@@ -4,13 +4,18 @@
 :func:`flix_delete` keeps the TPU wrapper's pre-filter: the batch is cut to
 the keys that a point query finds (``flix_query``'s kernel on the card) and
 re-sorted with EMPTY in place of the rest.  :func:`flix_delete_pass` then
-runs one CUDA thread block per bucket (``csrc/flix_delete.cu``): the block
-finds its slice of the filtered batch by binary search of its fences, keeps
-its first ``cap`` entries, marks its stored keys by binary search of that
+runs ``csrc/flix_delete.cu``: persistent warps, one bucket at a time each
+(the paper's mapping), with a two-slot ``cp.async`` ring per warp that
+stages the next bucket's rows that hold keys (``num_nodes`` of them) and
+its slice of the filtered batch.  The slice bounds come from one
+``torch.searchsorted`` of the fences in the batch; a slice is cut at
+``cap`` entries.  A bucket marks its stored keys by binary search of its
 slice, compacts survivors inside their nodes and emptied nodes out of the
-chain, and writes the new stripe (freed slots hold EMPTY and value 0) with
-its metadata.  On the CPU it runs :func:`flix_delete_reference`, the same
-phases in torch (``kernels/_phases.py``).
+chain (the delete half of the update path it shares with the staged stripe
+kernel, ``csrc/flix_warp.cuh``), and writes the new stripe (freed slots
+hold EMPTY and value 0) with its metadata.  On the CPU it runs
+:func:`flix_delete_reference`, the same phases in torch
+(``kernels/_phases.py``) over whole stripes.
 
 What the pre-filter and the cut at ``cap`` keep from the reference, against
 ``core.delete``'s exact membership (ROADMAP Queue 3): a stored key whose
@@ -28,20 +33,21 @@ from repro_torch.kernels._launch import check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, slice_hits
 from repro_torch.kernels.flix_query import flix_point_query
 
-_INPUTS = ("keys", "vals", "mkba", "sorted_del_keys")
+_INPUTS = ("num_nodes", "keys", "vals", "mkba", "sorted_del_keys")
 
 
-def flix_delete_pass(keys, vals, mkba, sorted_del_keys):
+def flix_delete_pass(num_nodes, keys, vals, mkba, sorted_del_keys):
     """Delete every bucket's keys found in its slice of a sorted batch (cut
     at ``cap``).  The CUDA kernel on the card, :func:`flix_delete_reference`
-    on the CPU.  Returns ``(keys, vals, node_count, node_max, num_nodes)``.
+    on the CPU.  ``num_nodes`` [nb] tells the kernel which rows hold keys.
+    Returns ``(keys, vals, node_count, node_max, num_nodes)``.
     """
     nb, npb, ns = keys.shape
-    args = (keys, vals, mkba, sorted_del_keys)
+    args = (num_nodes, keys, vals, mkba, sorted_del_keys)
     dev = keys.device
     check(dev, _INPUTS, args)
-    if vals.shape != keys.shape or mkba.shape != (nb,):
-        raise ValueError("keys, vals and mkba disagree in geometry")
+    if vals.shape != keys.shape or mkba.shape != (nb,) or num_nodes.shape != (nb,):
+        raise ValueError("keys, vals, mkba and num_nodes disagree in geometry")
     if sorted_del_keys.dim() != 1:
         raise ValueError("sorted_del_keys must be one-dimensional")
     if dev.type == "cpu":
@@ -55,14 +61,28 @@ def flix_delete_pass(keys, vals, mkba, sorted_del_keys):
         torch.empty((nb, npb), dtype=torch.int32, device=dev),
         torch.empty((nb,), dtype=torch.int32, device=dev),
     )
-    n = sorted_del_keys.shape[0]
-    launch("flix_delete", "flix_delete_launch", dev, *args, *outs, n, nb, npb, ns)
+    ends = torch.searchsorted(sorted_del_keys, mkba, right=True, out_int32=True)
+    launch(
+        "flix_delete",
+        "flix_delete_launch",
+        dev,
+        keys,
+        vals,
+        num_nodes,
+        ends,
+        sorted_del_keys,
+        *outs,
+        nb,
+        npb,
+        ns,
+    )
     return outs
 
 
-def flix_delete_reference(keys, vals, mkba, sorted_del_keys):
+def flix_delete_reference(num_nodes, keys, vals, mkba, sorted_del_keys):
     """Plain torch version of the delete pass: same inputs and outputs as
-    :func:`flix_delete_pass`, run in bucket chunks."""
+    :func:`flix_delete_pass`, run in bucket chunks over whole stripes, as
+    the Pallas kernel reads them (``num_nodes`` is not read)."""
     nb, npb, ns = keys.shape
     S = npb * ns
     de = torch.searchsorted(sorted_del_keys, mkba, right=True, out_int32=True)
@@ -90,7 +110,7 @@ def flix_delete(state: FliXState, sorted_del_keys):
     )
     dk = torch.sort(torch.where(present, dk, EMPTY), stable=True).values
     okeys, ovals, ocnt, omax, onn = flix_delete_pass(
-        state.keys, state.vals, state.mkba, dk
+        state.num_nodes, state.keys, state.vals, state.mkba, dk
     )
     return FliXState(
         keys=okeys,

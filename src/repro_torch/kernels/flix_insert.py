@@ -1,13 +1,18 @@
 """TL-Bulk insertion kernel (port of ``repro/kernels/flix_insert.py``; paper
 §4.3.2).
 
-:func:`flix_insert_pass` runs one CUDA thread block per bucket
-(``csrc/flix_insert.cu``): the block finds its slice of the sorted batch by
-binary search of its fences, keeps its first ``cap`` entries, upsert-merges
-them into its stripe with the original-node-region re-chunk (the merge phase
-it shares with ``flix_apply``), and writes the new stripe, its metadata and
-its overflow count.  On the CPU it runs :func:`flix_insert_reference`, the
-same phases in torch (``kernels/_phases.py``).
+:func:`flix_insert_pass` runs ``csrc/flix_insert.cu``: persistent warps,
+one bucket at a time each (the paper's mapping), with a two-slot
+``cp.async`` ring per warp that stages the next bucket's rows that hold
+keys (``num_nodes`` of them), its ``node_max`` row and its slice of the
+sorted batch.  The slice bounds come from one ``torch.searchsorted`` of the
+fences in the batch; a slice is cut at ``cap`` entries.  A bucket
+upsert-merges its slice into its stripe with the original-node-region
+re-chunk (the insert half of the update path it shares with the staged
+stripe kernel, ``csrc/flix_warp.cuh``) and writes the new stripe, its
+metadata and its overflow count.  On the CPU it runs
+:func:`flix_insert_reference`, the same phases in torch
+(``kernels/_phases.py``) over whole stripes.
 
 Contract (``flix_insert_pallas``): the batch is sorted and holds each key
 once; a stored key that reappears takes the incoming value; EMPTY slots of
@@ -15,6 +20,8 @@ the output carry value 0.  ``overflow[b]`` is 1 when bucket ``b``'s pieces
 ran past its ``npb`` node slots, plus 1 when its slice held more than
 ``cap`` keys; the output state ORs ``overflow > 0`` into
 ``needs_restructure``, and its overflowed buckets are not to be trusted.
+The kernel reads only the first ``num_nodes[b]`` rows of a bucket, which
+holds for every state that keeps I1-I4 (the active nodes packed first).
 """
 
 from __future__ import annotations
@@ -26,24 +33,42 @@ from repro_torch.core.state import FliXState, bucket_chunks
 from repro_torch.kernels._launch import check, check_smem, launch
 from repro_torch.kernels._phases import merge_chunk, row_metadata
 
-_INPUTS = ("keys", "vals", "node_max", "mkba", "sorted_keys", "sorted_vals")
+_INPUTS = (
+    "num_nodes",
+    "keys",
+    "vals",
+    "node_max",
+    "mkba",
+    "sorted_keys",
+    "sorted_vals",
+)
 
 
-def flix_insert_pass(keys, vals, node_max, mkba, sorted_keys, sorted_vals):
+def flix_insert_pass(
+    num_nodes, keys, vals, node_max, mkba, sorted_keys, sorted_vals
+):
     """Insert a sorted batch into every bucket.  The CUDA kernel on the
     card, :func:`flix_insert_reference` on the CPU.
 
-    ``keys``/``vals`` [nb, npb, ns], ``node_max`` [nb, npb] and ``mkba``
-    [nb] are the state's planes; ``sorted_keys``/``sorted_vals`` [N] the
-    batch.  Returns ``(keys, vals, node_count, node_max, num_nodes,
+    ``num_nodes`` [nb], ``keys``/``vals`` [nb, npb, ns], ``node_max``
+    [nb, npb] and ``mkba`` [nb] are the state's planes (``num_nodes`` tells
+    the kernel which rows hold keys); ``sorted_keys``/``sorted_vals`` [N]
+    the batch.  Returns ``(keys, vals, node_count, node_max, num_nodes,
     overflow)``.
     """
     nb, npb, ns = keys.shape
-    args = (keys, vals, node_max, mkba, sorted_keys, sorted_vals)
+    args = (num_nodes, keys, vals, node_max, mkba, sorted_keys, sorted_vals)
     dev = keys.device
     check(dev, _INPUTS, args)
-    if vals.shape != keys.shape or node_max.shape != (nb, npb) or mkba.shape != (nb,):
-        raise ValueError("keys, vals, node_max and mkba disagree in geometry")
+    if (
+        vals.shape != keys.shape
+        or node_max.shape != (nb, npb)
+        or mkba.shape != (nb,)
+        or num_nodes.shape != (nb,)
+    ):
+        raise ValueError(
+            "keys, vals, node_max, mkba and num_nodes disagree in geometry"
+        )
     if sorted_keys.dim() != 1 or sorted_vals.shape != sorted_keys.shape:
         raise ValueError("sorted_keys and sorted_vals must be one column each")
     if dev.type == "cpu":
@@ -58,14 +83,32 @@ def flix_insert_pass(keys, vals, node_max, mkba, sorted_keys, sorted_vals):
         torch.empty((nb,), dtype=torch.int32, device=dev),
         torch.empty((nb,), dtype=torch.int32, device=dev),
     )
-    n = sorted_keys.shape[0]
-    launch("flix_insert", "flix_insert_launch", dev, *args, *outs, n, nb, npb, ns)
+    ends = torch.searchsorted(sorted_keys, mkba, right=True, out_int32=True)
+    launch(
+        "flix_insert",
+        "flix_insert_launch",
+        dev,
+        keys,
+        vals,
+        node_max,
+        num_nodes,
+        ends,
+        sorted_keys,
+        sorted_vals,
+        *outs,
+        nb,
+        npb,
+        ns,
+    )
     return outs
 
 
-def flix_insert_reference(keys, vals, node_max, mkba, sorted_keys, sorted_vals):
+def flix_insert_reference(
+    num_nodes, keys, vals, node_max, mkba, sorted_keys, sorted_vals
+):
     """Plain torch version of the insert pass: same inputs and outputs as
-    :func:`flix_insert_pass`, run in bucket chunks."""
+    :func:`flix_insert_pass`, run in bucket chunks over whole stripes, as
+    the Pallas kernel reads them (``num_nodes`` is not read)."""
     nb, npb, ns = keys.shape
     S = npb * ns
     ends = torch.searchsorted(sorted_keys, mkba, right=True, out_int32=True)
@@ -101,7 +144,13 @@ def flix_insert(state: FliXState, sorted_keys, sorted_vals):
     keys_in = sorted_keys.to(torch.int32).contiguous()
     vals_in = sorted_vals.to(torch.int32).contiguous()
     okeys, ovals, ocnt, omax, onn, overflow = flix_insert_pass(
-        state.keys, state.vals, state.node_max, state.mkba, keys_in, vals_in
+        state.num_nodes,
+        state.keys,
+        state.vals,
+        state.node_max,
+        state.mkba,
+        keys_in,
+        vals_in,
     )
     new_state = FliXState(
         keys=okeys,

@@ -369,9 +369,9 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="geometry"):
         fq.flix_point_query(ts.keys, ts.vals, ts.node_max, ts.mkba[:-1], q)
     with pytest.raises(ValueError, match="one column"):
-        fi.flix_insert_pass(ts.keys, ts.vals, ts.node_max, ts.mkba, q, q[:2])
+        fi.flix_insert_pass(ts.num_nodes, ts.keys, ts.vals, ts.node_max, ts.mkba, q, q[:2])
     with pytest.raises(ValueError, match="geometry"):
-        fd.flix_delete_pass(ts.keys, ts.vals[:1], ts.mkba, q)
+        fd.flix_delete_pass(ts.num_nodes, ts.keys, ts.vals[:1], ts.mkba, q)
     # the CPU runs the plain versions and counts no launch
     before = dict(LAUNCHES)
     ops.flix_point_query(ts, q)

@@ -100,7 +100,7 @@ def test_oversized_geometry_is_refused(cuda):
     with pytest.raises(ValueError, match="npb=2048"):
         ops.flix_insert(st, q, q)
     with pytest.raises(ValueError, match="npb=2048"):
-        fd.flix_delete_pass(st.keys, st.vals, st.mkba, q)
+        fd.flix_delete_pass(st.num_nodes, st.keys, st.vals, st.mkba, q)
 
 
 def _state_with_holes(rng, ns, npb, device):
@@ -148,7 +148,7 @@ def test_update_kernels_match_plain_on_card(cuda, ns, npb):
     ins = np.unique(np.concatenate([flood, fresh, [0, tcore.MAX_VALID]])).astype(np.int32)
     ik = torch.as_tensor(ins, device=cuda)
     iv = ik * 7 + 1
-    args = (st.keys, st.vals, st.node_max, st.mkba, ik, iv)
+    args = (st.num_nodes, st.keys, st.vals, st.node_max, st.mkba, ik, iv)
     got = fi.flix_insert_pass(*args)
     _equal(fi.flix_insert_reference(*args), got, "flix_insert")
     assert int(got[5].max()) == 2  # the flooded bucket overflows both ways
@@ -157,8 +157,9 @@ def test_update_kernels_match_plain_on_card(cuda, ns, npb):
         live[::5], np.repeat(live[2000:2100], 3), rng.integers(0, 1 << 26, 2000), [0],
     ])
     dk = torch.as_tensor(np.sort(dels).astype(np.int32), device=cuda)
-    got = fd.flix_delete_pass(st.keys, st.vals, st.mkba, dk)
-    _equal(fd.flix_delete_reference(st.keys, st.vals, st.mkba, dk), got, "flix_delete")
+    got = fd.flix_delete_pass(st.num_nodes, st.keys, st.vals, st.mkba, dk)
+    _equal(fd.flix_delete_reference(st.num_nodes, st.keys, st.vals, st.mkba, dk), got,
+           "flix_delete")
     new = ops.flix_delete(st, dk)
     want = tcore.delete(st, dk)[0]
     for f in ("keys", "node_count", "node_max", "num_nodes"):
@@ -337,22 +338,23 @@ QUERY_BUCKETS = 320  # buckets of every case's state, whatever the geometry
 RUN_MIN = 64
 
 
-def _query_state(rng, ns, npb, device, edge_keys=False, miss_vals=False):
-    """QUERY_BUCKETS buckets built at fill 0.5, then fresh keys inserted so
+def _query_state(rng, ns, npb, device, edge_keys=False, miss_vals=False,
+                 buckets=QUERY_BUCKETS):
+    """``buckets`` buckets built at fill 0.5, then fresh keys inserted so
     that bucket b holds (0, p/2, p+1, 2 ns)[b % 4] more than its p: chains
     of one to several nodes.  Values are key ^ 0x33 (fresh: key ^ 0x55);
     ``edge_keys`` stores keys 0 and MAX_VALID, ``miss_vals`` gives every
     third fresh key the value NOT_FOUND."""
     p = max(1, ns // 2)
-    keys = np.sort(rng.choice(1 << 26, QUERY_BUCKETS * p, replace=False)).astype(np.int64)
+    keys = np.sort(rng.choice(1 << 26, buckets * p, replace=False)).astype(np.int64)
     if edge_keys:
         keys[0], keys[-1] = 0, tcore.MAX_VALID
     st = tcore.build(keys, keys ^ 0x33, node_size=ns, nodes_per_bucket=npb, device=device)
-    assert st.num_buckets == QUERY_BUCKETS
+    assert st.num_buckets == buckets
     mk = st.mkba.cpu().numpy().astype(np.int64)
     lows = np.concatenate([[0], mk[:-1] + 1])
     fresh = []
-    for b in range(QUERY_BUCKETS):
+    for b in range(buckets):
         m = min((0, p // 2, p + 1, 2 * ns)[b % 4], ns * npb - p)
         cand = np.unique(rng.integers(lows[b], mk[b] + 1, 4 * m + 8))
         fresh.append(np.setdiff1d(cand, keys)[:m])
@@ -496,6 +498,202 @@ def test_query_kernel_edge_cases_on_card(cuda, ns, npb, case):
     assert LAUNCHES["flix_point_query"] == before + 1
     assert torch.equal(got, fq.flix_point_query_reference(*planes)), case
     assert torch.equal(got, tcore.point_query(st, planes[-1])), case
+
+
+# ---------------------------------------------------------------------------
+# the insert and delete kernels' edge cases (tests/test_torch_update_cases.py
+# holds the same cases' plain versions against the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+UPDATE_CASES = ("flood", "long_slices", "emptied_bucket", "delete_all", "full_bucket",
+                "above_max", "edge_keys", "delete_repeats", "not_found_value", "n_0", "n_1")
+UPDATE_BUCKETS = 32  # buckets of every case's state, whatever the geometry
+# the most insert or delete entries csrc/flix_insert.cu and flix_delete.cu
+# stage with a bucket; longer slices are read in place
+RING_CAP = 32
+
+
+def _fresh(rng, st, b, n):
+    """n distinct keys of bucket b's range that the state does not hold."""
+    lo, hi = _bucket_range(st, b)
+    live = _stored(st)[0]
+    cand = np.setdiff1d(np.unique(rng.integers(lo, hi + 1, 4 * n + 64)), live)
+    assert len(cand) >= n
+    return rng.choice(cand, n, replace=False)
+
+
+def _per_bucket(st, keys):
+    """Entries of the sorted keys in each bucket's slice."""
+    return np.bincount(np.searchsorted(st.mkba.cpu().numpy(), keys, side="left"),
+                       minlength=st.num_buckets + 1)[: st.num_buckets]
+
+
+def prefilter(st, dk):
+    """flix_delete's cut of a sorted delete batch to the keys a point query
+    finds, re-sorted with EMPTY in place of the rest (the plain version)."""
+    planes = (st.keys, st.vals, st.node_max, st.mkba)
+    present = fq.flix_point_query_reference(*planes, dk) != tcore.NOT_FOUND
+    return torch.sort(torch.where(present, dk, EMPTY), stable=True).values
+
+
+def update_case(ns, npb, case, device):
+    """A state, a sorted insert batch ``(keys, vals)``, a sorted delete
+    batch and a check of the case's premise (called with the state, the
+    insert keys, the pre-filtered delete batch and the insert and delete
+    passes' outputs), for one edge of the insert and delete kernels; the
+    same inputs on every device.  The state holds I1-I5 (checked here), as
+    every state the entry points receive does."""
+    rng = np.random.default_rng(2000 * UPDATE_CASES.index(case) + 10 * ns + npb)
+    st = _query_state(rng, ns, npb, device, edge_keys=case == "edge_keys",
+                      miss_vals=case == "not_found_value", buckets=UPDATE_BUCKETS)
+    S, nb, ins_grp, del_grp = ns * npb, st.num_buckets, [], []
+
+    def mine(b):
+        lo, hi = _bucket_range(st, b)
+        live = _stored(st)[0]
+        return live[(live >= lo) & (live <= hi)]
+
+    def premise(st, ik, dkf, ins, dele):
+        pass
+
+    if case == "flood":  # cap + 40 keys into bucket 5: pieces past npb and the cut at cap
+        ins_grp.append((_fresh(rng, st, 5, S + 40), None))
+
+        def premise(st, ik, dkf, ins, dele):
+            assert int(ins[5][5]) == 2
+
+    elif case == "long_slices":  # both slices longer than the ring stages
+        ins_grp.append((_fresh(rng, st, 1, RING_CAP + 8), None))
+        full = mine(7)  # 7 % 4 == 3: the bucket with the most keys
+        del_grp.append(np.repeat(full, -(-(RING_CAP + 1) // len(full))))
+
+        def premise(st, ik, dkf, ins, dele):
+            assert _per_bucket(st, ik)[1] > RING_CAP
+            assert _per_bucket(st, dkf.cpu().numpy())[7] > RING_CAP
+
+    elif case == "emptied_bucket":  # buckets 3 and 4 emptied by deletes, then inserts
+        dead = np.concatenate([mine(3), mine(4)]).astype(np.int32)
+        st = tcore.delete(st, torch.as_tensor(np.sort(dead), device=device))[0]
+        ins_grp += [(_fresh(rng, st, 3, ns + 3), None), (_fresh(rng, st, 4, 1), None)]
+        del_grp.append(dead[:5])  # absent now
+
+        def premise(st, ik, dkf, ins, dele):
+            nn = st.num_nodes.cpu().numpy()
+            assert nn[3] == 0 and nn[4] == 0
+            assert int(ins[4][3]) > 0 and int(ins[4][4]) == 1 and int(dele[4][3]) == 0
+
+    elif case == "delete_all":  # every key of buckets 6 and 7
+        del_grp += [mine(6), mine(7)]
+
+        def premise(st, ik, dkf, ins, dele):
+            assert int(st.num_nodes[7]) > 1 and int(dele[4][6]) == 0 and int(dele[4][7]) == 0
+
+    elif case == "full_bucket":  # bucket 8 (one node) filled to every slot, then one more key
+        add = _fresh(rng, st, 8, S - len(mine(8)) + 1)
+        st = tcore.insert(st, torch.as_tensor(np.sort(add[1:]).astype(np.int32), device=device),
+                          torch.as_tensor(np.sort(add[1:]).astype(np.int32), device=device))[0]
+        ins_grp.append((add[:1], None))
+
+        def premise(st, ik, dkf, ins, dele):
+            assert int(st.num_nodes[8]) == npb and int(st.node_count[8].sum()) == S
+            assert int(ins[5][8]) == 1
+
+    elif case == "above_max":  # keys above each bucket's last node max (the onn_c clamp)
+        nn = st.num_nodes.cpu().numpy()
+        olds = [int(st.node_max[b, nn[b] - 1]) for b in range(1, 13)]  # the fences, at build
+        st = tcore.delete(st, torch.as_tensor(np.array(olds, np.int32), device=device))[0]
+        nn = st.num_nodes.cpu().numpy()
+        tops = []
+        for b, old in zip(range(1, 13), olds):
+            top = int(st.node_max[b, nn[b] - 1]) if nn[b] else int(st.mkba[b - 1])
+            above = np.unique(rng.integers(top + 1, old + 1, 8))[:2]
+            assert len(above) == 2
+            ins_grp.append((above, None))
+            tops.append(top)
+
+        def premise(st, ik, dkf, ins, dele):
+            b = np.searchsorted(st.mkba.cpu().numpy(), ik, side="left")
+            sel = (b >= 1) & (b < 13)
+            assert sel.sum() == 24 and (ik[sel] > np.repeat(tops, 2)).all()
+
+    elif case == "edge_keys":  # keys 0 and MAX_VALID stored, upserted and deleted
+        ins_grp += [([0, tcore.MAX_VALID], [11, 12]), (_fresh(rng, st, nb // 2, 3), None)]
+        del_grp.append([0, tcore.MAX_VALID])
+
+        def premise(st, ik, dkf, ins, dele):
+            assert {0, tcore.MAX_VALID} <= set(_stored(st)[0][[0, -1]].tolist())
+            assert {0, tcore.MAX_VALID} <= set(dkf.cpu().numpy().tolist())
+
+    elif case == "delete_repeats":  # a slice of present keys past cap: only its first cap count
+        full = mine(11)
+        del_grp.append(np.repeat(full, S // len(full) + 2))
+
+        def premise(st, ik, dkf, ins, dele):
+            assert _per_bucket(st, dkf.cpu().numpy())[11] > S
+            assert 0 < int(dele[2][11].sum()) < int(st.node_count[11].sum())
+
+    elif case == "not_found_value":  # stored NOT_FOUND values: never deleted; upserts to it
+        k, v = _stored(st)
+        miss = k[v == tcore.NOT_FOUND]
+        del_grp.append(miss)
+        ins_grp.append((k[v != tcore.NOT_FOUND][::7], np.full(len(k[v != tcore.NOT_FOUND][::7]),
+                                                              tcore.NOT_FOUND)))
+
+        def premise(st, ik, dkf, ins, dele):
+            assert len(miss) > 5 and not np.isin(miss, dkf.cpu().numpy()).any()
+            assert np.isin(miss, _stored(tcore.FliXState(*dele, st.mkba,
+                                                         st.needs_restructure))[0]).all()
+
+    elif case == "n_1":  # one insert, one delete
+        ins_grp.append((_fresh(rng, st, 9, 1), None))
+        del_grp.append(mine(10)[:1])
+
+        def premise(st, ik, dkf, ins, dele):
+            assert len(ik) == 1 and len(dkf) == 1 and int(dele[2][10].sum()) == int(
+                st.node_count[10].sum()) - 1
+
+    else:  # "n_0": an empty batch of each kind
+
+        def premise(st, ik, dkf, ins, dele):
+            assert len(ik) == 0 and len(dkf) == 0
+
+    if case not in ("n_0", "n_1"):  # other buckets take a few updates too
+        ins_grp += [(_fresh(rng, st, b, 1), None) for b in range(16, nb, 3)]
+        del_grp += [mine(b)[:1] for b in range(17, nb, 5)] + [rng.integers(0, 1 << 26, 5)]
+    k = np.concatenate([np.asarray(k, np.int64) for k, _ in ins_grp] + [np.zeros(0, np.int64)])
+    v = np.concatenate([np.asarray(k, np.int64) * 3 + 1 if v is None else np.asarray(v, np.int64)
+                        for k, v in ins_grp] + [np.zeros(0, np.int64)])
+    k, first = np.unique(k, return_index=True)
+    dk = np.sort(np.concatenate([np.asarray(d, np.int64) for d in del_grp]
+                                + [np.zeros(0, np.int64)]))
+    tcore.check_invariants(st)
+    return st, (k.astype(np.int32), v[first].astype(np.int32)), dk.astype(np.int32), premise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UPDATE_CASES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
+def test_update_kernel_edge_cases_on_card(cuda, ns, npb, case):
+    """The warp-per-bucket insert and delete kernels equal their plain
+    versions byte for byte: a flood past cap, slices longer than the ring
+    stages, buckets emptied by deletes, deleting every key of a bucket, a
+    full bucket that one insert overflows, inserts above the last node max,
+    keys 0 and MAX_VALID, delete keys repeated past cap, stored NOT_FOUND
+    values, and batches of 0 and 1."""
+    st, (ik, iv), dk, premise = update_case(ns, npb, case, cuda)
+    ik, iv = torch.as_tensor(ik, device=cuda), torch.as_tensor(iv, device=cuda)
+    dkf = prefilter(st, torch.as_tensor(dk, device=cuda))
+    ins_args = (st.num_nodes, st.keys, st.vals, st.node_max, st.mkba, ik, iv)
+    del_args = (st.num_nodes, st.keys, st.vals, st.mkba, dkf)
+    before = dict(LAUNCHES)
+    ins = fi.flix_insert_pass(*ins_args)
+    dele = fd.flix_delete_pass(*del_args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_insert"] == before["flix_insert"] + 1
+    assert LAUNCHES["flix_delete"] == before["flix_delete"] + 1
+    _equal(fi.flix_insert_reference(*ins_args), ins, f"flix_insert ({case})")
+    _equal(fd.flix_delete_reference(*del_args), dele, f"flix_delete ({case})")
+    premise(st, ik.cpu().numpy(), dkf, ins, dele)
 
 
 @pytest.mark.cuda

@@ -35,18 +35,19 @@ def open_tree(tool, *options):
     return args, chip_smoke
 
 
-def build(args, module, entry=None):
+def build(args, module, *entries):
     """Check that ``module`` came from ``--src``, build the kernel library,
     and print ptxas's register and spill lines for the entry functions whose
-    name holds ``entry`` (when it builds, and when ``entry`` is given)."""
+    name holds one of ``entries`` (when it builds)."""
     assert Path(module.__file__).resolve().is_relative_to(Path(args.src).resolve()), \
         module.__file__
     from repro_torch.kernels import _build
 
     _, log = _build.build()
-    lines = log.splitlines() if entry else []
+    lines = log.splitlines() if entries else []
     for i, line in enumerate(lines):  # ptxas names the entry, then its resources
-        if "Compiling entry function" in line and entry in line:
+        if "Compiling entry function" in line and any(e in line for e in entries):
+            print(f"{args.tag:>8} {line.strip()}", flush=True)
             for info in lines[i + 1 : i + 4]:
                 if "registers" in info or "spill" in info:
                     print(f"{args.tag:>8} ptxas: {info.strip()}", flush=True)
