@@ -32,6 +32,14 @@ line, and no phase catches its own failure:
                 inserts above the last node max, keys 0 and MAX_VALID, a
                 slice repeated past cap, NOT_FOUND values, batches of 0 and
                 1.
+                flix_apply (3g) also on the edges of its persistent walk,
+                against its plain version and the staged kernel, at 2^20
+                keys in 32x16, 8x8, 32x64, 4x2, 6x4 and 3x3 (rows and
+                stripes that no bulk copy may move):
+                every other lap of the walk emptied, full buckets that one
+                more key overflows, inserts into emptied buckets, non-zero
+                vals at EMPTY slots, and states of 1, grid - 1 and grid + 1
+                buckets.
                 flix_range's count and scatter: ranges on bucket fences,
                 hi <= lo, over emptied buckets, and a truncating budget.
                 grouped_matmul within its float32 tolerance, in f32, bf16
@@ -534,7 +542,8 @@ def phase_main(dev):
     launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range")}
     e2e = {"off": [], "on": []}
     k_ms = {"off": [], "on": []}
-    r_ms, bounds, rbounds = [], [], []
+    r_ms, rbounds = [], []
+    bounds = {"off": [], "on": []}
     for i in range(FULL_BATCHES):
         tags, keys, vals = traffic.mixed(FULL_OPS)
         runs = {}
@@ -589,14 +598,17 @@ def phase_main(dev):
         rargs = (g, pref, new_state.node_count, new_state.keys, new_state.vals)
         r_ms.append(event_ms(lambda: fa.flix_apply_range_pass(*rargs), 10))
         outs = fa.flix_apply_pass(*args)
-        moved = stripe_pass_bytes(state, ops, r, outs)
-        bounds.append(moved / HBM_BYTES_PER_S * 1e3)
+        moved = {pipe: stripe_pass_bytes(state, ops, r, outs, staged=pipe == "on")
+                 for pipe in bounds}
+        for pipe in bounds:
+            bounds[pipe].append(moved[pipe] / HBM_BYTES_PER_S * 1e3)
         rbounds.append(gather_bytes(g, pref, npb) / HBM_BYTES_PER_S * 1e3)
         del outs
         log(f"  batch {i}: end to end {e2e['off'][-1]:.3f} ms (pipeline off), "
             f"{e2e['on'][-1]:.3f} ms (on), {FULL_OPS / e2e['on'][-1] * 1e3:.6g} ops/s (on); "
             f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['on'][-1]:.4f} ms "
-            f"(bound {bounds[-1]:.4f} ms, {moved} bytes), "
+            f"(bounds {bounds['off'][-1]:.4f} / {bounds['on'][-1]:.4f} ms, "
+            f"{moved['off']} / {moved['on']} bytes), "
             f"range gather {r_ms[-1]:.4f} ms; reference engine {ref_ms:.3f} ms; "
             f"launches {counts}; inserted {int(stats['inserted'])} deleted "
             f"{int(stats['deleted'])} range_truncated {int(stats['range_truncated'])}")
@@ -627,21 +639,27 @@ def phase_main(dev):
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {
         "flix_apply": dict(launches=launches["flix_apply"], ms=fmean(k_ms["off"]),
-                           plain_ms=plain_ms, bound_ms=fmean(bounds), err=e1),
+                           plain_ms=plain_ms, bound_ms=fmean(bounds["off"]), err=e1),
         "flix_apply_staged": dict(launches=launches["flix_apply_staged"],
                                   ms=fmean(k_ms["on"]), plain_ms=plain_ms,
-                                  bound_ms=fmean(bounds), err=e3),
+                                  bound_ms=fmean(bounds["on"]), err=e3),
         "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_ms),
                                  plain_ms=rplain_ms, bound_ms=fmean(rbounds), err=e2),
     }
 
 
-def stripe_pass_bytes(state, ops, r, outs) -> int:
-    """Bytes a stripe pass must move: the rows that hold keys and the node
-    max row read, the batch's inserts (key and val), deletes, slice bounds
-    and op columns read, every output written once."""
+def stripe_pass_bytes(state, ops, r, outs, *, staged: bool) -> int:
+    """Bytes a stripe pass must move: the rows that hold keys read, the
+    batch's inserts (key and val), deletes, slice bounds and op columns
+    read, every output written once.  Of the node metadata, the
+    single-buffer kernel (``staged=False``) is charged the whole
+    ``node_max`` plane: its inputs mark the active rows only there.  The
+    staged kernel is given ``num_nodes``, so it is charged that and the live
+    ``node_max`` entries (the merge's regions), as :func:`update_bytes`
+    charges the insert kernel."""
     n_ins, n_del = int(r.is_ins.sum()), int(r.is_del.sum())
-    return (active_row_bytes(state) + state.node_max.nbytes + 8 * n_ins + 4 * n_del
+    meta = (4 * state.num_buckets + 4 * live_nodes(state)) if staged else state.node_max.nbytes
+    return (active_row_bytes(state) + meta + 8 * n_ins + 4 * n_del
             + 6 * 4 * state.num_buckets + ops.tag.nbytes + ops.key.nbytes
             + sum(o.nbytes for o in outs))
 
@@ -875,6 +893,98 @@ def update_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
             assert bool(torch.isin(nf, got[0]).all()), label  # never deleted
     log(f"  {label}: {nb} buckets, {ik.numel()} inserts and {dk.numel()} deletes (and "
         f"batches of 0 and 1): flix_insert and flix_delete equal their plain versions")
+
+
+def apply_walk_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
+    """The single-buffer stripe kernel (csrc/flix_apply.cu) against its
+    plain version and the staged kernel on the edges of
+    its persistent walk (a block takes buckets b, b + grid, ... through a
+    ring of stages): a state of ``n_keys`` keys with many more buckets than
+    the grid holds blocks, whose buckets of every other lap of the walk are
+    emptied (an emptied bucket right after a full one in a block's walk),
+    some of whose first-lap buckets are filled to every slot, and whose vals
+    at every EMPTY slot are not 0; a mixed batch that inserts into emptied
+    and full buckets; then states of 1, grid - 1 and grid + 1 buckets."""
+    from repro_torch import core
+    from repro_torch.core.state import FliXState
+    from repro_torch.kernels import flix_apply as fa
+
+    grid = fa.flix_apply_grid(npb, ns, dev)
+    S, p = ns * npb, max(1, int(ns * 0.5))
+    label = f"apply walk, {n_keys} keys, ns={ns} npb={npb}, grid {grid}"
+    keys = torch.unique(torch.randint(1, 1 << 28, (n_keys,), generator=gen, device=dev,
+                                      dtype=torch.int32))
+
+    def rand(n, lo=0, hi=1 << 28):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+
+    def batch(st, n):  # n ops: 20% inserts, 20% deletes of live keys, reads, 1% ranges
+        live = st.keys[st.keys != core.EMPTY]
+        k = torch.cat([rand(n // 5), live[torch.randint(0, live.numel(), (n // 5,),
+                                                        generator=gen, device=dev)],
+                       rand(n - 2 * (n // 5))])
+        t = torch.full_like(k, core.OP_POINT)
+        t[: n // 5], t[n // 5: 2 * (n // 5)] = core.OP_INSERT, core.OP_DELETE
+        t[-(n // 10):] = core.OP_SUCCESSOR
+        t[-(n // 100) - 1:] = core.OP_RANGE
+        return t, k, torch.where(t == core.OP_RANGE, k + 64, k ^ 0x77)
+
+    def hold(st, tags, bk, bv, what):
+        sk, order = torch.sort(bk, stable=True)  # one op a key: the first
+        first = order[torch.cat([sk.new_ones(1, dtype=torch.bool), sk[1:] != sk[:-1]])]
+        ops, _ = core.make_ops(tags[first], bk[first], bv[first])
+        return check.run(st, ops, 8192, what)[1]  # equal to the plain version
+
+    state = core.build(keys, keys ^ 0x5A5A, node_size=ns, nodes_per_bucket=npb)
+    nb = state.num_buckets
+    lap = (torch.arange(nb, device=dev) // grid) % 2 == 1
+    gone_keys = state.keys[lap]
+    state = core.delete(state, torch.sort(gone_keys[gone_keys != core.EMPTY]).values)[0]
+    full = torch.arange(7, min(grid, nb - 1), 7, device=dev)
+    full = full[state.mkba[full] - state.mkba[full - 1] >= 2 * S][:64]  # room for S keys
+    fill = []
+    for b in full.tolist():  # every slot of the bucket, in its key range
+        lo, hi = int(state.mkba[b - 1]) + 1, int(state.mkba[b])
+        cand = lo + torch.randperm(hi - lo + 1, generator=gen, device=dev)[: 2 * S]
+        cand = cand[~torch.isin(cand, state.keys[b].flatten())]
+        fill.append(cand[: S - int(state.node_count[b].sum())].to(torch.int32))
+    fill = torch.sort(torch.cat(fill)).values
+    state = core.insert(state, fill, fill)[0]
+    junk = rand(state.vals.numel(), 1, 1 << 30).view(state.vals.shape)
+    state = FliXState(state.keys, torch.where(state.keys == core.EMPTY, junk, state.vals),
+                      state.node_count, state.node_max, state.num_nodes, state.mkba,
+                      state.needs_restructure)
+    core.check_invariants(state)
+    assert bool((state.num_nodes[full] == npb).all()) and bool((state.num_nodes[lap] == 0).all())
+
+    emptied = torch.nonzero(lap)[:, 0][:: max(1, int(lap.sum()) // 200)][:200]
+    lo = state.mkba[emptied - 1] + 1
+    span = (state.mkba[emptied] - lo + 1).clamp(max=1 << 20)
+    into_gone = lo + (torch.rand(emptied.numel(), generator=gen, device=dev) * span).int()
+    over = state.mkba[full[::2]]  # one insert into each of half the full buckets
+    over = over - torch.isin(over, state.keys).int()
+    tags, bk, bv = batch(state, 1 << 16)
+    extra = torch.cat([into_gone, over])
+    tags = torch.cat([tags, torch.full_like(extra, core.OP_INSERT)])
+    bk, bv = torch.cat([bk, extra]), torch.cat([bv, extra])
+    want = hold(state, tags, bk, bv, label)
+    assert int(want[5].sum()) > 0 and int((want[4][emptied] > 0).sum()) > 0, label
+    for nb2 in (1, grid - 1, grid + 1):
+        st = core.build(keys[: nb2 * p], keys[: nb2 * p], node_size=ns, nodes_per_bucket=npb)
+        assert st.num_buckets == nb2, (label, nb2)
+        hold(st, *batch(st, 4 * nb2 + 100), f"{label}, {nb2} buckets")
+    log(f"  {label}: {nb} buckets ({int(lap.sum())} emptied, {full.numel()} full, junk vals "
+        f"at EMPTY slots), then 1, grid - 1 and grid + 1 buckets: flix_apply equals its "
+        f"plain version and the staged kernel")
+
+
+def phase_walk(dev, check: KernelCheck):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    log("phase 3g: flix_apply's persistent walk, at 2^20 keys")
+    # the last two: rows and stripes that no bulk copy may move
+    for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2), (6, 4), (3, 3)):
+        apply_walk_case(dev, check, gen, ns, npb, 1 << 20)
 
 
 def phase_kernel_ops(dev, check: KernelCheck):
@@ -1775,6 +1885,7 @@ def main() -> int:
     phases = [
         ("3", lambda: phase_kernels(dev, check)),
         ("3d", lambda: phase_kernel_ops(dev, check)),
+        ("3g", lambda: phase_walk(dev, check)),
         ("3f", lambda: phase_gemm(dev, check)),
         ("4", lambda: measured.update(phase_main(dev))),
         ("5", lambda: measured.update(phase_fig9(dev, check))),

@@ -1,15 +1,19 @@
 // Per-bucket phases of FliX, as device functions shared by the kernels.
 //
 // Two kinds of worker here:
-//   * a thread block owns one bucket stripe in shared memory: the stripe
-//     kernel of flix_apply.cu, and nothing else since the insert and delete
-//     kernels became warp-per-bucket.  The block phases are the formulas of
-//     the JAX reference (repro/kernels/flix_apply.py _stripe_body,
-//     repro/kernels/flix_insert.py _insert_kernel, repro/kernels/flix_delete.py
-//     _delete_kernel, repro/core/insert.py _merge_one_bucket) with the TPU's
-//     O(S^2) compare-count masks replaced by block scans and binary searches,
-//     which give the same ranks because every sequence searched here is
-//     ascending;
+//   * the stripe workers of a block own one bucket stripe in shared memory
+//     at a time: the single-buffer stripe kernel of flix_apply.cu, and
+//     nothing else since the insert and delete kernels became a warp per
+//     bucket.  Its persistent blocks walk many buckets; every warp of a
+//     block but the last (the producer that stages the next buckets) is a
+//     stripe worker, and the workers meet at a named barrier
+//     (sync_workers).  The block phases are the formulas of the JAX
+//     reference (repro/kernels/flix_apply.py _stripe_body,
+//     repro/kernels/flix_insert.py _insert_kernel,
+//     repro/kernels/flix_delete.py _delete_kernel, repro/core/insert.py
+//     _merge_one_bucket) with the TPU's O(S^2) compare-count masks replaced
+//     by block scans and binary searches, which give the same ranks because
+//     every sequence searched here is ascending;
 //   * a warp owns one bucket and answers its slice of a sorted query batch
 //     (flix_successor): node and in-node position are popcounts of warp
 //     ballots, the paper's tile vote, and the warp finds its slice by binary
@@ -19,9 +23,10 @@
 // (flix_apply_staged.cu, flix_insert.cu, flix_delete.cu) are a warp per
 // bucket too; they run the stripe phases in the warp form of flix_warp.cuh
 // and share only the per-element formulas here (region_of, chunk_dest,
-// locate, lower_bound) and the ApplyArgs of the fused pass.  The point-query
-// kernel (flix_query.cu) keeps its own device functions: a warp owns a run
-// of buckets and answers a lane per query.
+// locate, lower_bound) and the ApplyArgs of the fused pass, so that the
+// single-buffer kernel stays an independent second witness of the staged
+// one.  The point-query kernel (flix_query.cu) keeps its own device
+// functions: a warp owns a run of buckets and answers a lane per query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -118,17 +123,29 @@ __device__ __forceinline__ WarpLocated warp_locate(const int* keys_b, const int*
 }
 
 // ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
 // block-wide pieces of the stripe passes
 // ---------------------------------------------------------------------------
 
-// In-place exclusive scan of x[0, n) by the whole block; x[n] receives the
-// total.  blockDim.x must be a multiple of 32; warp_buf holds 32 ints.
-// Each thread scans one contiguous chunk, so any n works with any block.
-// Up to kWarpScan entries the first warp scans alone, behind one barrier
-// instead of three.
+// The stripe workers of a block: threads [0, workers()), every warp but the
+// last, the producer warp (kProducerThreads), which never joins their named
+// barrier 1.  Every block that runs the block phases is launched with
+// block_threads(S) threads (below): stripe_threads(S) workers and the
+// producer.
+constexpr int kProducerThreads = 32;
+__device__ __forceinline__ int workers() { return blockDim.x - kProducerThreads; }
+
+__device__ __forceinline__ void sync_workers() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(workers()) : "memory");
+}
+
+// In-place exclusive scan of x[0, n) by the stripe workers; x[n] receives
+// the total.  warp_buf holds 32 ints.  Each thread scans one contiguous
+// chunk, so any n works with any number of workers.  Up to kWarpScan
+// entries the first warp scans alone, behind one barrier instead of three.
 constexpr int kWarpScan = 128;
 __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
-  const int T = blockDim.x, t = threadIdx.x;
+  const int T = workers(), t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   if (n <= kWarpScan) {
     if (warp == 0) {
@@ -149,7 +166,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
       }
       if (lane == 31) x[n] = v;
     }
-    __syncthreads();
+    sync_workers();
     return;
   }
   const int per = (n + T - 1) / T;
@@ -162,7 +179,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
     if (lane >= d) v += y;
   }
   if (lane == 31) warp_buf[warp] = v;
-  __syncthreads();
+  sync_workers();
   if (warp == 0) {
     const int nw = T >> 5;
     int w = lane < nw ? warp_buf[lane] : 0;
@@ -172,7 +189,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
     }
     if (lane < nw) warp_buf[lane] = w;
   }
-  __syncthreads();
+  sync_workers();
   int run = v - local + (warp ? warp_buf[warp - 1] : 0);
   for (int i = lo; i < hi; ++i) {
     const int c = x[i];
@@ -180,7 +197,7 @@ __device__ inline void block_exclusive_scan(int* x, int n, int* warp_buf) {
     run += c;
   }
   if (t == T - 1) x[n] = run;
-  __syncthreads();
+  sync_workers();
 }
 
 // Region (original node) of key z: the first node whose max is >= z,
@@ -203,17 +220,19 @@ __device__ __forceinline__ int chunk_dest(int rank, int r, const int* m_j, const
   return slot < npb ? slot * ns + (rr - start) : npb * ns;
 }
 
-// Shared-memory layout of one bucket's block stripe pass (flix_apply.cu).
+// Shared memory of one bucket's block stripe pass (flix_apply.cu): the
+// bucket's stripe and node max row (A, Av, Nmax) lie in the kernel's ring
+// stage and change with each bucket; the rest is the workers' scratch.
 struct Stripe {
-  int* A;       // [S] stripe keys (chain order); apply: later the result
+  int* A;       // [S] stripe keys (chain order); later the result
   int* Av;      // [S]
+  int* Nmax;    // [npb] input node max; later the output's
   int* B;       // [S] the bucket's insert slice (sorted), at most cap = S
   int* Bv;      // [S]
   int* K;       // [S] kept stripe keys, compacted (sorted)
   int* M;       // [S] merged stripe
   int* Mv;      // [S]
   int* X;       // [S+1] scan buffer
-  int* Nmax;    // [npb] input node max; apply: later the output's
   int* Mj;      // [npb] keys per original region
   int* Sj;      // [npb] pieces per region
   int* Fj;      // [npb] first merged rank of region
@@ -221,27 +240,26 @@ struct Stripe {
   int* Slot;    // [npb] node's slot after chain compaction
   int* Cnt;     // [npb] output node counts
   int* Warp;    // [32]
-  int* Scalar;  // [8] onn0, total pieces, deleted, output num_nodes; 4-7 free
+  int* Scalar;  // [8] 1: total pieces, 2: deleted, 3: output num_nodes; the rest free
 };
 
-__host__ __device__ inline int merge_smem_ints(int npb, int ns) {
-  const int S = npb * ns;
-  return 2 * S + 2 * S + S + 2 * S + (S + 1) + 7 * npb + 32 + 8;
+__host__ __device__ inline long long block_scratch_ints(int npb, int ns) {
+  const long long S = (long long)npb * ns;
+  return 5 * S + (S + 1) + 6LL * npb + 32 + 8;
 }
 
-__device__ inline Stripe carve_merge(int* smem, int npb, int ns) {
+// The scratch at p (block_scratch_ints long); A, Av and Nmax are left unset.
+__device__ inline Stripe carve_block_scratch(int* p, int npb, int ns) {
   const int S = npb * ns;
   Stripe s;
-  s.A = smem;
-  s.Av = s.A + S;
-  s.B = s.Av + S;
+  s.A = s.Av = s.Nmax = nullptr;
+  s.B = p;
   s.Bv = s.B + S;
   s.K = s.Bv + S;
   s.M = s.K + S;
   s.Mv = s.M + S;
   s.X = s.Mv + S;
-  s.Nmax = s.X + S + 1;
-  s.Mj = s.Nmax + npb;
+  s.Mj = s.X + S + 1;
   s.Sj = s.Mj + npb;
   s.Fj = s.Sj + npb;
   s.Base = s.Fj + npb;
@@ -252,69 +270,84 @@ __device__ inline Stripe carve_merge(int* smem, int npb, int ns) {
   return s;
 }
 
-// Threads per stripe block: one per slot up to 256.
-constexpr int kStripeThreads = 256;
+// Stripe workers per block: one per slot up to 128 (4 warps).  The update
+// path is latency-bound, so smaller blocks, more of them on an SM, win.
+constexpr int kStripeThreads = 128;
 inline int stripe_threads(int S) {
   const int t = ((S + 31) / 32) * 32;
   return t < kStripeThreads ? t : kStripeThreads;
 }
 
-// Resident stripe blocks an SM should hold: with 256 threads that caps the
-// block-per-bucket stripe kernel of flix_apply.cu at 32 registers a thread
-// (__launch_bounds__).  The warp-per-bucket staged kernel has no such cap:
-// the occupancy API sizes it from its shared memory.
-constexpr int kStripeBlocksPerSm = 8;
-
-// Load bucket b's stripe into A/Av and clear the merged stripe M/Mv.  With
-// node_max given, also load Nmax, clear Mj and count the active nodes into
-// Scalar[0].  Ends with a barrier.
-__device__ inline void load_stripe(const Stripe& s, const int* __restrict__ keys,
-                                   const int* __restrict__ vals,
-                                   const int* __restrict__ node_max, int b, int npb,
-                                   int ns) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  const size_t base = (size_t)b * S;
-  if (t < 4) s.Scalar[t] = 0;
-  __syncthreads();
-  for (int i = t; i < S; i += T) {
-    s.A[i] = keys[base + i];
-    s.Av[i] = vals[base + i];
-    s.M[i] = kEmpty;
-    s.Mv[i] = 0;
-  }
-  if (node_max != nullptr) {
-    const size_t mbase = (size_t)b * npb;
-    for (int j = t; j < npb; j += T) {
-      const int x = node_max[mbase + j];
-      s.Nmax[j] = x;
-      s.Mj[j] = 0;
-      if (x != kEmpty) atomicAdd(&s.Scalar[0], 1);
-    }
-  }
-  __syncthreads();
-}
+// Threads of a block that runs the block phases: the workers, then the
+// producer warp that workers() leaves out.
+inline int block_threads(int S) { return stripe_threads(S) + kProducerThreads; }
 
 // Load the first m entries of an insert slice into B/Bv.  Ends with a
 // barrier.
 __device__ inline void load_insert_slice(const Stripe& s, const int* __restrict__ ik,
                                          const int* __restrict__ iv, int m) {
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+  for (int j = threadIdx.x; j < m; j += workers()) {
     s.B[j] = ik[j];
     s.Bv[j] = iv[j];
   }
-  __syncthreads();
+  sync_workers();
+}
+
+// region_of and chunk_dest in the block phases, with the search and the
+// divisions skipped where they cannot change the answer: a bucket of one
+// active node has one region, and a region of one piece keeps its ranks.
+__device__ __forceinline__ int block_region(const Stripe& s, int npb, int onn_c, int z) {
+  return onn_c == 0 ? 0 : region_of(s.Nmax, npb, onn_c, z);
+}
+
+__device__ __forceinline__ int block_dest(const Stripe& s, int rank, int r, int npb, int ns) {
+  if (s.Sj[r] <= 1) {
+    const int slot = s.Base[r];
+    return slot < npb ? slot * ns + (rank - s.Fj[r]) : npb * ns;
+  }
+  return chunk_dest(rank, r, s.Mj, s.Sj, s.Fj, s.Base, npb, ns);
+}
+
+// Add to counts[r], for each r >= 0 that lanes of the warp hold, the number
+// of lanes that hold it: one shared-memory atomic per distinct r, where one
+// per lane would serialise on a shared counter.  Every lane of the warp
+// calls it.
+__device__ __forceinline__ void warp_count(int* counts, int r) {
+  const int lane = threadIdx.x & 31;
+  const unsigned held = __ballot_sync(kFull, r >= 0);
+  if (held == 0) return;
+  const int first = __ffs(held) - 1, r0 = __shfl_sync(kFull, r, first);
+  if (__all_sync(kFull, r < 0 || r == r0)) {  // one region: the common case
+    if (lane == first) atomicAdd(&counts[r0], __popc(held));
+    return;
+  }
+  const unsigned peers = __match_any_sync(kFull, r);
+  if (r >= 0 && lane == __ffs(peers) - 1) atomicAdd(&counts[r], __popc(peers));
+}
+
+// chunk_dest of a bucket's only region (first rank 0, first slot 0), from
+// its key and piece counts held in registers.
+__device__ __forceinline__ int one_region_dest(int rank, int mj, int sj, int npb, int ns) {
+  const int m_r = max(mj, 1), s_r = max(sj, 1);
+  if (s_r == 1) return rank;
+  const int piece = (rank * s_r) / m_r;
+  const int start = (piece * m_r + s_r - 1) / s_r;
+  return piece < npb ? piece * ns + (rank - start) : npb * ns;
 }
 
 // Upsert merge of the insert slice B[0, m) into the stripe A: stripe keys
 // that reappear in B are dropped (the incoming value wins), each original
 // node region is re-chunked into balanced pieces, and the result lands in
-// M/Mv (EMPTY / 0 elsewhere).  Only the first Scalar[0] rows of A (the
-// active nodes, packed first: I3/I4) are read.  Scalar[1] receives the
-// number of pieces: more than npb means the bucket overflowed and the
-// pieces past the last slot were dropped.  Ends with a barrier.
-__device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  const int L = s.Scalar[0] * ns;  // the slots of A that may hold keys
+// M/Mv (EMPTY / 0 elsewhere).  Only the first nn rows of A (the active
+// nodes, packed first: I3/I4) are read.  Scalar[1] receives the number of
+// pieces: more than npb means the bucket overflowed and the pieces past the
+// last slot were dropped.  Mj must be 0 and M/Mv cleared in the rows the
+// pieces can fill; B (and every other input) must be visible to all
+// workers on entry, but nothing needs a barrier before the first loop.
+// Ends with a barrier.
+__device__ inline void merge_phase(const Stripe& s, int nn, int m, int npb, int ns) {
+  const int S = npb * ns, t = threadIdx.x, T = workers();
+  const int L = nn * ns;  // the slots of A that may hold keys
 
   // stripe keys not upserted, ranked by a block scan
   for (int i = t; i < L; i += T) {
@@ -326,42 +359,60 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
     }
     s.X[i] = keep;
   }
-  __syncthreads();
+  sync_workers();
   block_exclusive_scan(s.X, L, s.Warp);  // X[i] = kept keys before slot i
   const int nK = s.X[L];
-  const int onn_c = max(s.Scalar[0] - 1, 0);
+  const int onn_c = max(nn - 1, 0);
 
-  for (int i = t; i < L; i += T) {
-    if (s.X[i + 1] != s.X[i]) {
+  // keys per region, each warp's lanes counted by one atomic per region
+  for (int i0 = t & ~31; i0 < L; i0 += T) {
+    const int i = i0 + (t & 31);
+    int r = -1;
+    if (i < L && s.X[i + 1] != s.X[i]) {
       const int a = s.A[i];
       s.K[s.X[i]] = a;
-      atomicAdd(&s.Mj[region_of(s.Nmax, npb, onn_c, a)], 1);
+      r = block_region(s, npb, onn_c, a);
     }
+    warp_count(s.Mj, r);
   }
-  for (int j = t; j < m; j += T) atomicAdd(&s.Mj[region_of(s.Nmax, npb, onn_c, s.B[j])], 1);
-  __syncthreads();
+  for (int j0 = t & ~31; j0 < m; j0 += T) {
+    const int j = j0 + (t & 31);
+    warp_count(s.Mj, j < m ? block_region(s, npb, onn_c, s.B[j]) : -1);
+  }
+  sync_workers();
 
-  if (t == 0) {  // regions past onn_c receive no key
-    int f = 0, slot = 0;
-    for (int j = 0; j <= onn_c; ++j) {
-      const int mj = s.Mj[j];
-      const int sj = (mj + ns - 1) / ns;
-      s.Sj[j] = sj;
-      s.Fj[j] = f;
-      s.Base[j] = slot;
-      f += mj;
-      slot += sj;
+  // each region's pieces, first rank and first slot; a bucket's only
+  // region needs no table: every worker holds its counts
+  int mj0 = 0, sj0 = 0;
+  if (onn_c == 0) {
+    mj0 = s.Mj[0];
+    sj0 = (mj0 + ns - 1) / ns;
+    if (t == 0) s.Scalar[1] = sj0;
+  } else {
+    if (t == 0) {  // regions past onn_c receive no key
+      int f = 0, slot = 0;
+      for (int j = 0; j <= onn_c; ++j) {
+        const int mj = s.Mj[j];
+        const int sj = (mj + ns - 1) / ns;
+        s.Sj[j] = sj;
+        s.Fj[j] = f;
+        s.Base[j] = slot;
+        f += mj;
+        slot += sj;
+      }
+      s.Scalar[1] = slot;
     }
-    s.Scalar[1] = slot;
+    sync_workers();
   }
-  __syncthreads();
+  auto dest = [&](int rank, int z) {
+    return onn_c == 0 ? one_region_dest(rank, mj0, sj0, npb, ns)
+                      : block_dest(s, rank, region_of(s.Nmax, npb, onn_c, z), npb, ns);
+  };
 
   for (int i = t; i < L; i += T) {
     if (s.X[i + 1] != s.X[i]) {
       const int a = s.A[i];
-      const int rank = s.X[i] + lower_bound(s.B, m, a);
-      const int d = chunk_dest(rank, region_of(s.Nmax, npb, onn_c, a), s.Mj, s.Sj, s.Fj,
-                               s.Base, npb, ns);
+      const int d = dest(s.X[i] + lower_bound(s.B, m, a), a);
       if (d < S) {
         s.M[d] = a;
         s.Mv[d] = s.Av[i];
@@ -370,15 +421,13 @@ __device__ inline void merge_phase(const Stripe& s, int m, int npb, int ns) {
   }
   for (int j = t; j < m; j += T) {
     const int k = s.B[j];
-    const int rank = lower_bound(s.K, nK, k) + j;
-    const int d = chunk_dest(rank, region_of(s.Nmax, npb, onn_c, k), s.Mj, s.Sj, s.Fj,
-                             s.Base, npb, ns);
+    const int d = dest(lower_bound(s.K, nK, k) + j, k);
     if (d < S) {
       s.M[d] = k;
       s.Mv[d] = s.Bv[j];
     }
   }
-  __syncthreads();
+  sync_workers();
 }
 
 // The slots of the merged stripe M that may hold keys: its pieces, cut at
@@ -393,28 +442,35 @@ __device__ __forceinline__ int merged_slots(const Stripe& s, int npb, int ns) {
 // the hits.  Ends with a barrier.
 __device__ inline void mark_deletes(const Stripe& s, const int* src, const int* dk, int dn,
                                     int L) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const int k = src[i];
-    int keep = 0;
-    if (k != kEmpty) {
-      const int p = lower_bound(dk, dn, k);
-      const bool hit = p < dn && dk[p] == k;
-      if (hit) atomicAdd(&s.Scalar[2], 1);
-      keep = !hit;
+  const int t = threadIdx.x;
+  for (int i0 = t & ~31; i0 < L; i0 += workers()) {
+    const int i = i0 + (t & 31);
+    bool hit = false;
+    if (i < L) {
+      const int k = src[i];
+      int keep = 0;
+      if (k != kEmpty) {
+        const int p = lower_bound(dk, dn, k);
+        hit = p < dn && dk[p] == k;
+        keep = !hit;
+      }
+      s.X[i] = keep;
     }
-    s.X[i] = keep;
+    warp_count(s.Scalar + 2, hit ? 0 : -1);
   }
-  __syncthreads();
+  sync_workers();
 }
 
 // In-node and chain compaction of src/srcv by the survivor flags in
 // X[0, L) (mark_deletes' L; the rows past it hold no key): survivors shift
 // left inside their node, emptied nodes drop out of the chain, and the
-// result lands in dst/dstv (EMPTY / 0 elsewhere).  Cnt receives the output
-// node counts and Scalar[3] the output num_nodes.  Ends with a barrier.
+// result lands in dst/dstv (EMPTY / 0 elsewhere in dst[0, L); the rows past
+// L are left as they were, and the output's nodes end before them).  Cnt
+// receives the output node counts and Scalar[3] the output num_nodes.  Ends
+// with a barrier.
 __device__ inline void compact_phase(const Stripe& s, const int* src, const int* srcv,
                                      int* dst, int* dstv, int npb, int ns, int L) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
+  const int t = threadIdx.x, T = workers();
   block_exclusive_scan(s.X, L, s.Warp);  // survivors before each slot
   if (t == 0) {
     int slot = 0;
@@ -426,11 +482,11 @@ __device__ inline void compact_phase(const Stripe& s, const int* src, const int*
     for (int j = slot; j < npb; ++j) s.Cnt[j] = 0;
     s.Scalar[3] = slot;
   }
-  for (int i = t; i < S; i += T) {
+  for (int i = t; i < L; i += T) {
     dst[i] = kEmpty;
     dstv[i] = 0;
   }
-  __syncthreads();
+  sync_workers();
   for (int i = t; i < L; i += T) {
     if (s.X[i + 1] != s.X[i]) {
       const int j = i / ns;
@@ -439,31 +495,26 @@ __device__ inline void compact_phase(const Stripe& s, const int* src, const int*
       dstv[d] = srcv[i];
     }
   }
-  __syncthreads();
+  sync_workers();
 }
 
-// Write a finished stripe src/srcv of bucket b and its metadata: node_count
-// from Cnt, node_max = the last key of each non-empty node (also kept in
-// Nmax when it is given), num_nodes from Scalar[3].  Ends with a barrier.
-__device__ inline void write_stripe(const Stripe& s, const int* src, const int* srcv,
-                                    int* __restrict__ keys_out, int* __restrict__ vals_out,
+
+// Write the metadata of a finished stripe src of bucket b: node_count from
+// Cnt, node_max = the last key of each non-empty node (also kept in Nmax for
+// the reads that follow), num_nodes from Scalar[3].  The stripe's planes go
+// out by the kernel's own stores (flix_apply.cu).  No barrier.
+__device__ inline void write_stripe(const Stripe& s, const int* src,
                                     int* __restrict__ count_out, int* __restrict__ max_out,
                                     int* __restrict__ nn_out, int b, int npb, int ns) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  const size_t base = (size_t)b * S, mbase = (size_t)b * npb;
-  for (int j = t; j < npb; j += T) {
+  const size_t mbase = (size_t)b * npb;
+  for (int j = threadIdx.x; j < npb; j += workers()) {
     const int c = s.Cnt[j];
     const int mx = c > 0 ? src[j * ns + c - 1] : kEmpty;
-    if (s.Nmax != nullptr) s.Nmax[j] = mx;
+    s.Nmax[j] = mx;
     count_out[mbase + j] = c;
     max_out[mbase + j] = mx;
   }
-  for (int i = t; i < S; i += T) {
-    keys_out[base + i] = src[i];
-    vals_out[base + i] = srcv[i];
-  }
-  if (t == 0) nn_out[b] = s.Scalar[3];
-  __syncthreads();
+  if (threadIdx.x == 0) nn_out[b] = s.Scalar[3];
 }
 
 // Where key q sits in a post-update stripe held by one thread: node = first
@@ -485,15 +536,10 @@ __device__ __forceinline__ Located locate(const int* keys, const int* nmax, int 
   return l;
 }
 
-// ---------------------------------------------------------------------------
-// the fused mixed-batch pass of one bucket (flix_apply.cu's stripe kernel;
-// the staged kernel takes the same ApplyArgs and computes the same function
-// by warp)
-// ---------------------------------------------------------------------------
-
-// Inputs and outputs of a fused stripe pass: the pre-batch planes, the
-// compacted insert and delete keys with their per-bucket slices, the sorted
-// batch with its per-bucket op slices, and the per-bucket and per-op outputs.
+// Inputs and outputs of a fused stripe pass (flix_apply.cu's and
+// flix_apply_staged.cu's): the pre-batch planes, the compacted insert and
+// delete keys with their per-bucket slices, the sorted batch with its
+// per-bucket op slices, and the per-bucket and per-op outputs.
 struct ApplyArgs {
   const int* __restrict__ keys;
   const int* __restrict__ vals;
@@ -519,94 +565,5 @@ struct ApplyArgs {
   int* __restrict__ value_out;
   int* __restrict__ succ_out;
 };
-
-// Per-bucket slice bounds of a fused pass: [start, end) of the bucket's
-// inserts, deletes and ops in the compacted and sorted batch columns.
-struct Slices {
-  int ins_start, ins_end, del_start, del_end, op_start, op_end;
-};
-
-// The write-back of a bucket with no insert and no delete in the batch.  In
-// a state that holds I1-I4 the merge would re-chunk every active row into
-// itself and the compaction keep it, so the stripe goes back as it is: its
-// active rows (s.A/s.Av, the first Scalar[0] rows), EMPTY / 0 past them and
-// 0 for the vals of EMPTY slots (as the compaction writes them), the node
-// counts (keys are packed at the front of a row), the node max row, and
-// Scalar[3] = the active node count.  Ends with a barrier.
-__device__ inline void keep_stripe(const Stripe& s, int* __restrict__ keys_out,
-                                   int* __restrict__ vals_out, int* __restrict__ count_out,
-                                   int* __restrict__ max_out, int* __restrict__ nn_out, int b,
-                                   int npb, int ns) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  const int nn = s.Scalar[0], L = nn * ns;
-  const size_t base = (size_t)b * S, mbase = (size_t)b * npb;
-  for (int i = t; i < S; i += T) {
-    const int k = i < L ? s.A[i] : kEmpty;
-    keys_out[base + i] = k;
-    vals_out[base + i] = k != kEmpty ? s.Av[i] : 0;
-  }
-  for (int j = t; j < npb; j += T) {
-    count_out[mbase + j] = j < nn ? lower_bound(s.A + j * ns, ns, kEmpty) : 0;
-    max_out[mbase + j] = s.Nmax[j];
-  }
-  if (t == 0) {
-    nn_out[b] = nn;
-    s.Scalar[3] = nn;
-  }
-  __syncthreads();
-}
-
-// The fused pass of bucket b, whose active rows are loaded in s.A/s.Av, its
-// node max row in s.Nmax, the active node count in Scalar[0], Scalar[1..3]
-// and s.Mj zeroed and s.M/s.Mv cleared (load_stripe does all of that): merge
-// the insert slice (cut at cap = S), delete, write the post-update stripe
-// and its metadata, then answer the bucket's POINT ops and in-bucket
-// SUCCESSOR candidates against it.  A bucket with no insert and no delete
-// in the batch skips the merge and the compaction (keep_stripe).  Each op
-// belongs to at most one bucket,
-// so the per-op writes never race.  SUCCESSOR ops with no in-bucket
-// candidate keep (EMPTY, NOT_FOUND); the wrapper resolves them from the
-// post-update fence rows.
-__device__ inline void apply_bucket(const Stripe& s, const ApplyArgs& a, const Slices& sl,
-                                    int b, int npb, int ns) {
-  const int S = npb * ns, t = threadIdx.x, T = blockDim.x;
-  const int m = min(max(sl.ins_end - sl.ins_start, 0), S);
-  const int dn = max(sl.del_end - sl.del_start, 0);
-  if (m == 0 && dn == 0) {
-    keep_stripe(s, a.keys_out, a.vals_out, a.count_out, a.max_out, a.nn_out, b, npb, ns);
-    if (t == 0) {
-      a.flow_out[b] = 0;
-      a.del_out[b] = 0;
-    }
-  } else {
-    load_insert_slice(s, a.ins_keys + sl.ins_start, a.ins_vals + sl.ins_start, m);
-    merge_phase(s, m, npb, ns);
-    const int L = merged_slots(s, npb, ns);
-    mark_deletes(s, s.M, a.del_keys + sl.del_start, dn, L);
-    compact_phase(s, s.M, s.Mv, s.A, s.Av, npb, ns, L);
-    write_stripe(s, s.A, s.Av, a.keys_out, a.vals_out, a.count_out, a.max_out, a.nn_out, b,
-                 npb, ns);
-    if (t == 0) {
-      a.flow_out[b] = s.Scalar[1] > npb;
-      a.del_out[b] = s.Scalar[2];
-    }
-  }
-
-  const int nn = s.Scalar[3];
-  for (int i = sl.op_start + t; i < sl.op_end; i += T) {
-    const int tg = a.op_tag[i];
-    if (tg != kOpPoint && tg != kOpSuccessor) continue;
-    const int q = a.op_key[i];
-    const Located l = locate(s.A, s.Nmax, nn, npb, ns, q);
-    const int at = l.node * ns + l.pos;
-    const bool use_in = l.in_bucket && l.raw_pos < ns;
-    if (tg == kOpPoint) {
-      a.value_out[i] = use_in && s.A[at] == q ? s.Av[at] : kMiss;
-    } else if (use_in) {
-      a.succ_out[i] = s.A[at];
-      a.value_out[i] = s.Av[at];
-    }
-  }
-}
 
 }  // namespace flix

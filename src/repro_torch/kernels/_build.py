@@ -40,6 +40,7 @@ SIGNATURES = {
     "flix_apply_smem_bytes": ([_I, _I], _I),
     "flix_smem_optin_bytes": ([], _I),
     "flix_apply_launch": ([_P] * 23 + [_I, _I, _I, _P], _I),
+    "flix_apply_grid": ([_I, _I], _I),
     "flix_apply_staged_smem_bytes": ([_I, _I], _I),
     "flix_apply_staged_launch": ([_P] * 24 + [_I, _I, _I, _P], _I),
     "flix_range_count_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),

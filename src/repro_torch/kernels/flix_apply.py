@@ -6,16 +6,21 @@ upsert-merges the inserts with original-node-region re-chunking, deletes
 with in-node and chain compaction, writes the new stripe and its metadata,
 and answers the bucket's POINT ops and in-bucket SUCCESSOR candidates
 against the post-update stripe in shared memory.  Two stripe kernels
-compute that one function:
+compute that one function, by independent designs, so that each is the
+other's witness on the card:
 
-  * ``csrc/flix_apply.cu`` (``pipeline="off"``): one block per bucket, the
-    whole stripe copied in;
+  * ``csrc/flix_apply.cu`` (``pipeline="off"``): a thread block per bucket
+    at a time, running the block phases of ``csrc/flix_phases.cuh``.  Its
+    persistent blocks walk many buckets; a producer warp per block counts a
+    bucket's active rows from ``node_max`` and has the bulk-copy engine copy
+    just those rows, and the bucket's short slices, into a ring of stages;
   * ``csrc/flix_apply_staged.cu`` (``pipeline="on"``, the counterpart of
     the TPU's double-buffered ``_apply_kernel_pipelined``): one warp per
     bucket, the paper's mapping.  Each warp of persistent blocks walks many
     buckets, and while one bucket is merged, ``cp.async`` copies the warp's
-    next bucket's rows that hold keys into the other slot of its ring; a
-    bucket with no insert and no delete writes its rows straight back.
+    next bucket's rows that hold keys (``num_nodes`` of them) into the other
+    slot of its ring; a bucket with no insert and no delete writes its rows
+    straight back.
 
 A second launch fills the dense RANGE output, one thread per slot (the
 gather of ``csrc/flix_range.cu``, shared with ``kernels/flix_range``).
@@ -60,7 +65,8 @@ from repro_torch.core.query import (
     range_slot_ranks,
 )
 from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
-from repro_torch.kernels._launch import check, check_smem, launch
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels._launch import _require_cuda, check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
 from repro_torch.kernels.flix_range import range_gather
 
@@ -155,6 +161,18 @@ def flix_apply_pass(
         op_ends,
     )
     return _stripe_pass(args)
+
+
+def flix_apply_grid(npb: int, ns: int, device) -> int:
+    """The blocks the single-buffer kernel's persistent grid holds at once
+    for a ``(npb, ns)`` geometry on ``device`` (a CUDA card); a launch over
+    fewer buckets takes a block per bucket."""
+    _require_cuda("flix_apply", torch.device(device))
+    with torch.cuda.device(device):
+        blocks = load_library().flix_apply_grid(npb, ns)
+    if blocks < 0:
+        raise RuntimeError(f"flix_apply_grid failed with CUDA error {-blocks}")
+    return blocks
 
 
 def flix_apply_staged_pass(num_nodes, *args):

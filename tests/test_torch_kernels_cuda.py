@@ -215,6 +215,13 @@ def _full_bucket(rng, ns, npb, device):
     return st, groups, premise
 
 
+def stripe_case(ns, npb, case, device):
+    """A state, a sorted batch and a check of the case's premise (called
+    with the stripe pass's outputs and the routing), for one edge of the
+    stripe kernels; the same inputs on every device."""
+    return _staged_case(np.random.default_rng(3 * ns + npb), ns, npb, case, device)
+
+
 def _staged_case(rng, ns, npb, case, device):
     """A state, a sorted batch and a check of the case's premise, for one
     edge of the warp-per-bucket staged kernel."""
@@ -312,8 +319,7 @@ def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, ca
     longer than a warp, inserts into emptied buckets and above the last
     node's max, buckets emptied by deletes, a full bucket that one insert
     overflows, the boundary keys and NOT_FOUND as a value."""
-    rng = np.random.default_rng(3 * ns + npb)
-    st, ops_, premise = _staged_case(rng, ns, npb, case, cuda)
+    st, ops_, premise = stripe_case(ns, npb, case, cuda)
     args, r = fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)
     args = list(args)
     before = dict(LAUNCHES)
@@ -323,6 +329,156 @@ def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, ca
     _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
     _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
     premise(got, r)
+
+
+# ---------------------------------------------------------------------------
+# the single-buffer stripe kernel's walk (csrc/flix_apply.cu: persistent
+# blocks, each taking the buckets b, b + grid, ... through a ring of stages;
+# tests/test_torch_stripe_cases.py holds the same cases' plain version
+# against the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+WALK_CASES = ("nb_1", "under_grid", "over_grid", "full_then_emptied", "empty_slot_vals",
+              "unaligned_planes")
+# EDGE_GEOMETRIES, then ns = 6 (rows in by cp.async: a bulk copy needs a
+# multiple of 16 bytes) and ns = npb = 3 (S = 9: stripes out by the threads'
+# stores too)
+WALK_GEOMETRIES = EDGE_GEOMETRIES + [(6, 4), (3, 3)]
+WALK_WIDTH = 4  # a bucket's key range, in stripes
+
+
+def _unaligned(t):
+    """A copy of int32 tensor ``t`` laid 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def walk_state(rng, rows, ns, npb, device, junk_vals=False, unaligned=False):
+    """A state whose bucket b holds ``len(rows[b])`` active nodes of
+    ``rows[b][j]`` keys each, drawn from its range [b·W, (b+1)·W) (W =
+    WALK_WIDTH·S).  ``junk_vals`` puts non-zero vals at every EMPTY slot
+    (vals there are unspecified); ``unaligned`` lays the key and val planes
+    4 bytes past a 16-byte boundary."""
+    nb, S = len(rows), ns * npb
+    W = WALK_WIDTH * S
+    keys = np.full((nb, npb, ns), EMPTY, np.int32)
+    vals = (rng.integers(1, 1 << 30, (nb, npb, ns)) if junk_vals
+            else np.zeros((nb, npb, ns))).astype(np.int32)
+    count = np.zeros((nb, npb), np.int32)
+    for b, counts in enumerate(rows):
+        k = np.sort(rng.choice(np.arange(b * W + 1, (b + 1) * W), sum(counts), replace=False))
+        at = 0
+        for j, c in enumerate(counts):
+            keys[b, j, :c] = k[at:at + c]
+            vals[b, j, :c] = k[at:at + c] ^ 0x2B
+            count[b, j] = c
+            at += c
+    nmax = np.where(count > 0, np.take_along_axis(keys, np.maximum(count - 1, 0)[..., None],
+                                                  2)[..., 0], EMPTY).astype(np.int32)
+    mkba = (np.arange(1, nb + 1) * W - 1).astype(np.int32)
+    mkba[-1] = tcore.MAX_VALID
+    arrays = dict(keys=keys, vals=vals, node_count=count, node_max=nmax,
+                  num_nodes=np.array([len(c) for c in rows], np.int32), mkba=mkba,
+                  needs_restructure=np.zeros((), bool))
+    st = tcore.state_from_numpy(arrays, device)
+    if unaligned:
+        planes = [_unaligned(t) for t in (st.keys, st.vals)]
+        st = tcore.FliXState(*planes, *(getattr(st, f) for f in
+                                        ("node_count", "node_max", "num_nodes", "mkba",
+                                         "needs_restructure")))
+    tcore.check_invariants(st)
+    return st
+
+
+def walk_case(ns, npb, case, grid, device):
+    """A state, a sorted batch and a check of the case's premise (called with
+    the stripe pass's outputs and the routing), for one edge of the
+    single-buffer kernel's walk.  ``grid`` is the kernel's persistent grid
+    on the card (``fa.flix_apply_grid``), any positive number elsewhere; the
+    inputs depend on nothing else."""
+    rng = np.random.default_rng(1000 * WALK_CASES.index(case) + 10 * ns + npb)
+    S, W = ns * npb, WALK_WIDTH * ns * npb
+    nb = {"nb_1": 1, "under_grid": max(grid - 1, 1), "over_grid": grid + 1,
+          "full_then_emptied": 8 * grid + 3, "empty_slot_vals": 2 * grid + 1,
+          "unaligned_planes": grid + 1}[case]
+    if case == "full_then_emptied":  # a block's walk alternates full and emptied buckets
+        rows = [[ns] * npb if (b // grid) % 2 == 0 else [] for b in range(nb)]
+    elif case == "empty_slot_vals":  # active rows with EMPTY slots
+        rows = [[int(c) for c in rng.integers(1, max(ns, 2), rng.integers(1, npb + 1))]
+                for _ in range(nb)]
+    else:
+        rows = [[int(c) for c in rng.integers(1, ns + 1, n)]
+                for n in rng.integers(0, npb + 1, nb)]
+    st = walk_state(rng, rows, ns, npb, device, junk_vals=case == "empty_slot_vals",
+                    unaligned=case == "unaligned_planes")
+    live = _stored(st)[0]
+    nn = np.array([len(c) for c in rows])
+    ins, dele, pt, succ = tcore.OP_INSERT, tcore.OP_DELETE, tcore.OP_POINT, tcore.OP_SUCCESSOR
+
+    def fresh(buckets, n):  # n keys of each bucket's range, not stored
+        k = (np.repeat(buckets, n) * W + rng.integers(1, W, len(buckets) * n)).astype(np.int64)
+        return np.setdiff1d(k, live)
+
+    every = np.arange(nb)
+    groups = [(ins, fresh(rng.choice(every, max(nb // 3, 1)), 2), None),
+              (dele, rng.choice(live, min(len(live), nb // 4 + 1), replace=False), None),
+              (pt, rng.choice(live, min(len(live), nb // 2 + 1), replace=False), None),
+              (pt, fresh(every, 1)[: nb // 3 + 1], None),
+              (succ, rng.integers(0, nb * W, nb // 3 + 2), None)]
+    if case == "full_then_emptied":
+        gone, full = every[nn == 0], every[nn == npb]
+        groups = [(ins, fresh(gone[::3], ns + 2), None),  # the update path on nn = 0
+                  (ins, fresh(full[1::5], 1), None),  # a full bucket overflows
+                  (pt, fresh(gone[1::3], 2), None), (succ, fresh(gone[2::3], 2), None),
+                  (dele, _stored(st)[0][(live // W) % 7 == 0], None)] + groups[2:]
+
+    def premise(got, r):
+        upd = ((r.ins_ends - r.ins_starts) > 0) | ((r.del_ends - r.del_starts) > 0)
+        assert int(got[4].shape[0]) == nb
+        if nb > 1:
+            assert bool(upd.any()) and not bool(upd.all())  # both paths run
+        if case == "full_then_emptied":
+            assert int(st.num_nodes[0]) == npb and int(st.num_nodes[grid]) == 0
+            assert bool(upd[gone].any()) and not bool(upd[gone].all())
+            assert int(got[5].sum()) > 0  # the full buckets that take an insert overflow
+        if case == "empty_slot_vals":
+            keep = ~upd.cpu().numpy()
+            k, v = st.keys.cpu().numpy()[keep], st.vals.cpu().numpy()[keep]
+            active = np.arange(npb)[None, :, None] < nn[keep][:, None, None]
+            assert ((k == EMPTY) & active & (v != 0)).any()
+        if case == "unaligned_planes":
+            assert st.keys.data_ptr() % 16 and st.vals.data_ptr() % 16
+
+    return st, _sorted_ops(groups, device), premise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("ns,npb", WALK_GEOMETRIES)
+def test_apply_kernel_walk_edges_on_card(cuda, ns, npb, case):
+    """The single-buffer kernel on the edges of its persistent walk: one
+    bucket; one bucket fewer and one more than the grid holds, so that the
+    walk wraps part way; a block's walk alternating full and emptied buckets
+    (stale rows in a reused stage); keep-path buckets whose active rows hold
+    EMPTY slots with non-zero vals; planes and slice columns off 16-byte
+    alignment, and geometries whose rows or stripes no bulk copy may move,
+    where the kernel copies by cp.async and its threads' stores and reads
+    the slices in place.  Each equals the plain version and the staged
+    kernel, byte for byte."""
+    st, ops_, premise = walk_case(ns, npb, case, fa.flix_apply_grid(npb, ns, cuda), cuda)
+    args, r = fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)
+    if case == "unaligned_planes":  # the insert keys and op keys too
+        args = tuple(_unaligned(t) if i in (3, 11) else t for i, t in enumerate(args))
+    want = fa.flix_apply_reference(*args)
+    _equal(want, fa.flix_apply_staged_pass(st.num_nodes, *args), f"staged ({case})")
+    before = LAUNCHES["flix_apply"]
+    got = fa.flix_apply_pass(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_apply"] == before + 1
+    _equal(want, got, f"flix_apply ({case})")
+    premise(want, r)
 
 
 # ---------------------------------------------------------------------------
