@@ -161,6 +161,7 @@ SERVE_RANGE_BUDGET = 1 << 18
 SERVE_TTL = 40  # clock units an appended page lives (4 steps)
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
+FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
 MOE_PREFILL = 4096  # tokens of a prefill chunk
 # (run, configuration, tokens; None: decode_32k's global batch, skewed router)
 MOE_RUNS = (
@@ -181,6 +182,8 @@ KERNELS = {
     "flix_apply_range": ("flix_range.cu", "src/repro/kernels/flix_apply.py:327"),
     "flix_point_query": ("flix_query.cu", "src/repro/kernels/flix_query.py:54"),
     "flix_successor": ("flix_successor.cu", "src/repro/kernels/flix_successor.py:45"),
+    # the jnp scan that flix_successor_pallas runs beside its kernel
+    "flix_fence_rows": ("flix_fence_rows.cu", "src/repro/kernels/flix_successor.py:150"),
     "flix_insert": ("flix_insert.cu", "src/repro/kernels/flix_insert.py:39"),
     "flix_delete": ("flix_delete.cu", "src/repro/kernels/flix_delete.py:48"),
     "flix_range_count": ("flix_range.cu", "src/repro/kernels/flix_range.py:53"),
@@ -328,6 +331,29 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events around
+    calls queued behind a sleep of the card, so that the host's time to
+    issue them (a wrapper's Python, the ctypes call) stays off the clock.
+    The sleep doubles until it outlasts the issuing."""
+    cycles = 1 << 24  # ~8 ms at the H100's clock
+    while True:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ev[2].record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > issue_ms:
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 2
+
+
 def host_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -470,6 +496,9 @@ def phase_kernels(dev, check: KernelCheck):
             f"plain versions, the scan equals dense_range_scan; truncated {int(got[4])}")
         assert (int(got[4]) > 0) == (budget == 512)
 
+    log("phase 3h: the fence-row kernel at 2^20 + 3 buckets")
+    fence_rows_case(dev, check, gen)
+
     log("phase 3b: long stripes (64 nodes x 32 keys = 2048 slots per bucket)")
     traffic = Traffic(1 << 20, 1 << 14, gen)
     keys, vals = traffic.initial()
@@ -495,6 +524,52 @@ def phase_kernels(dev, check: KernelCheck):
     check.run(state, ops, cfg.max_results, "overflowing pass")
     fused = compare_engines("overflow retry", state, ops, cfg, expect_retries=1)
     log(f"  retried once into geometry {fused[0].geometry}")
+
+
+def fence_rows_case(dev, check: KernelCheck, gen):
+    """The fence-row kernel against ``next_rows`` at 2^20 + 3 buckets (no
+    multiple of a tile), with the non-empty test from ``node_max``
+    (flix_successor's) and from ``num_nodes`` (the fused apply's): a built
+    state at the default geometry with a run of emptied buckets longer than
+    a tile, scattered emptied buckets and an emptied tail; then planes of
+    4-key nodes, 2 a bucket, with random non-monotone heads, a third of them
+    drawn from four values, 40% of the buckets empty and a run of 3000,
+    their junk keys left in place."""
+    from repro_torch import core
+    from repro_torch.kernels import flix_successor as fs
+
+    nb = FENCE_BUCKETS
+    keys = torch.randperm(32 * nb, generator=gen, device=dev, dtype=torch.int32)[: 16 * nb]
+    state = core.build(keys, keys ^ 0x5A5A)  # 16 keys a bucket at the default geometry
+    assert state.num_buckets == nb, state.num_buckets
+    gone = torch.cat([torch.arange(1000, 4000, device=dev),
+                      torch.arange(nb // 10, nb // 5, 5, device=dev),
+                      torch.arange(nb - 40, nb, device=dev)])
+    dead = state.keys[gone]
+    state = core.delete(state, torch.sort(dead[dead != core.EMPTY]).values)[0]
+    assert bool((state.num_nodes[gone] == 0).all())
+    cases = [("built state", state.keys, state.vals, state.node_max, state.num_nodes)]
+    del keys, dead
+
+    def rand(*shape):
+        return torch.randint(0, core.EMPTY, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    k, v = rand(nb, 2, 4), rand(nb, 2, 4) - (1 << 30)
+    some = torch.rand(nb, generator=gen, device=dev) < 1 / 3
+    four = torch.tensor([0, 7, 1000, core.MAX_VALID], dtype=torch.int32, device=dev)
+    k[:, 0, 0] = torch.where(some, four[(rand(nb) % 4).long()], k[:, 0, 0])
+    active = (rand(nb) % 2 + 1) * (torch.rand(nb, generator=gen, device=dev) >= 0.4)
+    active[nb // 2 : nb // 2 + 3000] = 0
+    active = active.to(torch.int32)
+    nm = torch.where(torch.arange(2, device=dev) < active[:, None], rand(nb, 2), core.EMPTY)
+    cases.append(("random heads", k, v, nm.to(torch.int32).contiguous(), active))
+    for label, k, v, nm, nn in cases:
+        for kw in (dict(node_max=nm), dict(num_nodes=nn)):
+            check.hold("flix_fence_rows", fs.next_rows(k, v, **kw), fs.fence_rows(k, v, **kw),
+                       f"fence rows, {label}, {list(kw)[0]}")
+    log(f"  {nb} buckets (a built state with {gone.numel()} emptied buckets, and random "
+        f"non-monotone heads with {int((active == 0).sum())} empty buckets): flix_fence_rows "
+        f"equals next_rows from node_max and from num_nodes")
 
 
 def range_case(check, state, lo, hi, max_results, label):
@@ -527,6 +602,7 @@ def phase_main(dev):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flix_apply as fa
     from repro_torch.kernels import flix_range as fr
+    from repro_torch.kernels import flix_successor as fs
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
@@ -539,10 +615,12 @@ def phase_main(dev):
     log(f"  geometry nb={nb} npb={npb} ns={ns}, {state.memory_bytes() / 1e9:.3f} GB of state, "
         f"build {build_ms:.1f} ms")
     cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS)
-    launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range")}
+    launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range",
+                               "flix_fence_rows")}
     e2e = {"off": [], "on": []}
     k_ms = {"off": [], "on": []}
     r_ms, rbounds = [], []
+    f_ms, f_call_ms, f_torch_ms, fbounds = [], [], [], []
     bounds = {"off": [], "on": []}
     for i in range(FULL_BATCHES):
         tags, keys, vals = traffic.mixed(FULL_OPS)
@@ -559,7 +637,7 @@ def phase_main(dev):
             torch.cuda.synchronize()
             e2e[pipe].append((time.perf_counter() - t0) * 1e3)
             counts = {k: LAUNCHES[k] for k in launches}
-            for k in (STRIPE_KERNEL[pipe], "flix_apply_range"):
+            for k in (STRIPE_KERNEL[pipe], "flix_apply_range", "flix_fence_rows"):
                 if counts[k] < 1:
                     raise AssertionError(f"batch {i} ({pipe}): kernel {k} was not launched")
             other = STRIPE_KERNEL["on" if pipe == "off" else "off"]
@@ -604,12 +682,29 @@ def phase_main(dev):
             bounds[pipe].append(moved[pipe] / HBM_BYTES_PER_S * 1e3)
         rbounds.append(gather_bytes(g, pref, npb) / HBM_BYTES_PER_S * 1e3)
         del outs
+        # the fence rows of the post-update state (flix_apply.py's SUCCESSOR
+        # fallback): the kernel, and the torch pass it replaced, in turns;
+        # the kernel queued (its device time: its wrapper's host time is
+        # longer) and as a call
+        fargs = (new_state.keys, new_state.vals)
+        fnn = new_state.num_nodes
+        kernel_rows = lambda: fs.fence_rows(*fargs, num_nodes=fnn)  # noqa: E731
+        torch_rows = lambda: fs.next_rows(*fargs, num_nodes=fnn)  # noqa: E731
+        ft = [queued_ms(kernel_rows, 5), event_ms(torch_rows, 5), event_ms(torch_rows, 5),
+              queued_ms(kernel_rows, 5)]
+        f_ms.append((ft[0] + ft[3]) / 2)
+        f_call_ms.append(event_ms(kernel_rows, 5))
+        f_torch_ms.append((ft[1] + ft[2]) / 2)
+        fbounds.append(fence_bytes(new_state, num_nodes=True) / HBM_BYTES_PER_S * 1e3)
         log(f"  batch {i}: end to end {e2e['off'][-1]:.3f} ms (pipeline off), "
             f"{e2e['on'][-1]:.3f} ms (on), {FULL_OPS / e2e['on'][-1] * 1e3:.6g} ops/s (on); "
             f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['on'][-1]:.4f} ms "
             f"(bounds {bounds['off'][-1]:.4f} / {bounds['on'][-1]:.4f} ms, "
             f"{moved['off']} / {moved['on']} bytes), "
-            f"range gather {r_ms[-1]:.4f} ms; reference engine {ref_ms:.3f} ms; "
+            f"range gather {r_ms[-1]:.4f} ms; fence rows {f_ms[-1]:.4f} ms queued, "
+            f"{f_call_ms[-1]:.4f} ms a call (bound {fbounds[-1]:.4f} ms; the torch pass "
+            f"{f_torch_ms[-1]:.4f} ms); "
+            f"reference engine {ref_ms:.3f} ms; "
             f"launches {counts}; inserted {int(stats['inserted'])} deleted "
             f"{int(stats['deleted'])} range_truncated {int(stats['range_truncated'])}")
         state = new_state
@@ -631,10 +726,15 @@ def phase_main(dev):
     rk = fa.flix_apply_range_pass(*rargs)
     rwant, rplain_ms = host_ms(lambda: fr.flix_range_gather_reference(*rargs))
     e2 = max_abs_err(rwant, rk)
+    fwant, fplain_ms = host_ms(torch_rows)
+    e4 = max_abs_err(fwant, kernel_rows())
     log(f"  plain versions at main-path shapes: flix_apply {plain_ms:.3f} ms "
         f"(max_abs_err {e1}; flix_apply_staged's {e3}), range gather {rplain_ms:.3f} ms "
-        f"(max_abs_err {e2})")
-    if e1 or e2 or e3:
+        f"(max_abs_err {e2}), fence rows {fplain_ms:.3f} ms (max_abs_err {e4})")
+    log(f"  fence rows: mean {fmean(f_ms):.4f} ms queued ({fmean(f_call_ms):.4f} ms a call) "
+        f"against their {fmean(fbounds):.4f} ms bound; the torch pass they replace "
+        f"{fmean(f_torch_ms):.4f} ms")
+    if e1 or e2 or e3 or e4:
         raise AssertionError("a kernel disagrees with its plain version at main-path shapes")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {
@@ -645,6 +745,8 @@ def phase_main(dev):
                                   bound_ms=fmean(bounds["on"]), err=e3),
         "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_ms),
                                  plain_ms=rplain_ms, bound_ms=fmean(rbounds), err=e2),
+        "flix_fence_rows": dict(launches=launches["flix_fence_rows"], ms=fmean(f_ms),
+                                plain_ms=fplain_ms, bound_ms=fmean(fbounds), err=e4),
     }
 
 
@@ -789,6 +891,67 @@ def query_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
         check.hold("flix_point_query", [core.point_query(state, qq)], [got], f"{label} vs core")
     log(f"  {label}: {nb} buckets ({emptied} emptied), {q.numel()} queries and batches of "
         f"1 and 77: flix_point_query equals its plain version and core.point_query")
+
+
+def successor_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
+    """flix_successor (the fence-row kernel, then the successor kernel)
+    against its plain version and core.successor_query on its edges: a run
+    of emptied buckets longer than two warps' runs, an emptied tail, every
+    third bucket's largest key deleted (so that queries one above its new
+    largest key and at its fence fall to the fence rows), every seventh
+    bucket's head stored with NOT_FOUND, every fence and the key above it,
+    100 repeats of one key, a bucket's keys three times over, keys 0,
+    MAX_VALID and EMPTY, and batches of 1 and 77 queries."""
+    from repro_torch import core
+    from repro_torch.kernels import flix_successor as fs
+
+    label = f"successor edges, {n_keys} keys, ns={ns} npb={npb}"
+    keys = torch.unique(torch.randint(1, 1 << 28, (n_keys,), generator=gen, device=dev,
+                                      dtype=torch.int32))
+    keys[-1] = core.MAX_VALID
+    vals = keys ^ 0x33
+    vals[::97] = core.NOT_FOUND
+    state = core.build(torch.cat([keys, keys.new_zeros(1)]), torch.cat([vals, vals[:1]]),
+                       node_size=ns, nodes_per_bucket=npb)
+    nb = state.num_buckets
+    tail = state.keys[nb - 40:]
+    state = core.delete(state, sorted_i32(keys[5000:9000], tail[tail != core.EMPTY]))[0]
+    heads = state.keys[::7, 0, 0]
+    heads = torch.sort(heads[heads != core.EMPTY]).values
+    state = core.insert(state, heads, torch.full_like(heads, core.NOT_FOUND))[0]
+    b3 = torch.arange(0, nb - 40, 3, device=dev)
+    b3 = b3[state.node_count[b3].sum(1) > 1]
+    top = state.node_max[b3, state.num_nodes[b3].long() - 1]
+    state = core.delete(state, torch.sort(top).values)[0]
+    core.check_invariants(state)
+    empty = (state.num_nodes == 0).int()
+    # the longest run of emptied buckets: positions since the last non-empty one
+    idx = torch.arange(nb, device=dev)
+    since = idx - torch.cummax(torch.where(empty == 0, idx, -1), 0).values
+    assert int(since.max()) > 2 * 64 and bool((state.num_nodes[nb - 40:] == 0).all()), label
+    top = state.node_max[b3, state.num_nodes[b3].long() - 1]
+    past = torch.cat([top + 1, state.mkba[b3]])
+    b = nb // 3
+    mine = keys[(keys > int(state.mkba[b - 1])) & (keys <= int(state.mkba[b]))]
+    pick = torch.randint(0, keys.numel(), (20000,), generator=gen, device=dev)
+    edge = torch.tensor([0, 1, core.MAX_VALID, core.EMPTY], dtype=torch.int32, device=dev)
+    q = sorted_i32(state.mkba, state.mkba + 1, keys[pick], keys[pick] + 1,
+                   keys[3000:3001].repeat(100), mine.repeat(3), keys[4990:9010], past,
+                   tail[tail != core.EMPTY], edge)
+    planes = (state.keys, state.vals, state.node_max, state.mkba)
+    check.hold("flix_fence_rows", fs.next_rows(*planes[:3]), fs.fence_rows(*planes[:3]), label)
+    for qq in (q, q[:1], q[q.numel() // 2 : q.numel() // 2 + 77]):
+        got = fs.flix_successor(*planes, qq)
+        check.hold("flix_successor", fs.flix_successor_reference(*planes, qq), got, label)
+        check.hold("flix_successor", core.successor_query(state, qq), got, f"{label} vs core")
+        if qq is q:
+            nf = int(((got[0] != core.EMPTY) & (got[1] == core.NOT_FOUND)).sum())
+            none = int((got[0] == core.EMPTY).sum())
+            assert nf > 0 and none > 0, label
+    log(f"  {label}: {nb} buckets ({int(empty.sum())} emptied, the longest run "
+        f"{int(since.max())}), {q.numel()} queries ({nf} answered by a key stored with "
+        f"NOT_FOUND, {none} with no successor) and batches of 1 and 77: flix_successor "
+        f"equals its plain version and core.successor_query")
 
 
 def update_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
@@ -997,6 +1160,8 @@ def phase_kernel_ops(dev, check: KernelCheck):
         query_edge_case(dev, check, gen, ns, npb, n_keys)
     for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2)):
         update_edge_case(dev, check, gen, ns, npb, 1 << 20)
+    for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2)):  # last: the draws before stay
+        successor_edge_case(dev, check, gen, ns, npb, 1 << 20)
 
 
 def query_bytes(state, q, successor: bool) -> int:
@@ -1023,6 +1188,28 @@ def query_bytes(state, q, successor: bool) -> int:
     return moved + 4 * torch.unique(slot[answered]).numel()
 
 
+def fence_bytes(state, num_nodes: bool) -> int:
+    """Bytes the fence-row kernel must move for a state's planes: per bucket
+    its non-empty test (4 bytes of ``num_nodes``, or the first 32-byte
+    sector of its ``node_max`` row, all of the row where the first entry is
+    EMPTY), the sector of each non-empty bucket's head key, the sector of
+    the head value of each distinct attaining bucket, and 8 bytes out."""
+    from repro_torch.core.query import _successor_fence_rows
+    from repro_torch.core.state import EMPTY
+
+    nb, npb, ns = state.geometry
+    sector = min(32, 4 * npb * ns)  # of a head key or value
+    if num_nodes:
+        test, live = 4 * nb, state.num_nodes > 0
+    else:
+        first = min(32, 4 * npb)
+        rest = int((state.node_max[:, 0] == EMPTY).sum()) * (4 * npb - first)
+        test, live = first * nb + rest, (state.node_max != EMPTY).any(1)
+    _, sidx_pad = _successor_fence_rows(state.keys, live.to(torch.int32))
+    attained = torch.unique(sidx_pad[1:]).numel()
+    return test + sector * int(live.sum()) + sector * attained + 8 * nb
+
+
 def phase_fig9(dev, check: KernelCheck):
     """The paper's Fig. 9 round schedule through the kernel entry points."""
     from repro_torch import core
@@ -1044,7 +1231,8 @@ def phase_fig9(dev, check: KernelCheck):
     del keys, vals
     nb, npb, ns = state.geometry
     pool = traffic.perm[FULL_KEYS : FULL_KEYS + 4 * FIG9_ROUND]
-    names = ("flix_point_query", "flix_successor", "flix_insert", "flix_delete")
+    names = ("flix_point_query", "flix_successor", "flix_fence_rows", "flix_insert",
+             "flix_delete")
     launches = {k: 0 for k in names}
     times = {k: [] for k in names}
     bounds = {k: [] for k in names}
@@ -1083,7 +1271,7 @@ def phase_fig9(dev, check: KernelCheck):
         round_ms = (time.perf_counter() - t0) * 1e3
         counts = {k: LAUNCHES[k] for k in names}
         expect = {"flix_point_query": 2 if ins else 3, "flix_successor": 1,
-                  "flix_insert": int(ins), "flix_delete": int(not ins)}
+                  "flix_fence_rows": 1, "flix_insert": int(ins), "flix_delete": int(not ins)}
         if counts != expect:
             raise AssertionError(f"fig9 round {rnd}: launches {counts}, expected {expect}")
         for k, c in counts.items():
@@ -1148,15 +1336,19 @@ def phase_fig9(dev, check: KernelCheck):
         for q in (hits, misses):
             q_ms.append(event_ms(lambda: fq.flix_point_query(*planes, q), 5))
             q_bytes.append(query_bytes(new_state, q, successor=False))
-        nxk, nxv = fs.next_rows(*planes[:3])
+        nxk, nxv = fs.fence_rows(*planes[:3])
         s_ms = event_ms(lambda: fs.successor_pass(*planes, nxk, nxv, succ), 5)
-        side_ms["successor fence rows"] = event_ms(lambda: fs.next_rows(*planes[:3]), 5)
+        f_ms = queued_ms(lambda: fs.fence_rows(*planes[:3]), 5)  # device time alone
+        side_ms["fence rows a call"] = event_ms(lambda: fs.fence_rows(*planes[:3]), 5)
         s_bytes = query_bytes(new_state, succ, successor=True)
+        f_bytes = fence_bytes(new_state, num_nodes=False)
         q_bound = [b / HBM_BYTES_PER_S * 1e3 for b in q_bytes]
         times["flix_point_query"] += q_ms
         bounds["flix_point_query"] += q_bound
         times["flix_successor"].append(s_ms)
         bounds["flix_successor"].append(s_bytes / HBM_BYTES_PER_S * 1e3)
+        times["flix_fence_rows"].append(f_ms)
+        bounds["flix_fence_rows"].append(f_bytes / HBM_BYTES_PER_S * 1e3)
         log(f"  round {rnd} ({'insert' if ins else 'delete'} {FIG9_ROUND}): "
             f"{round_ms:.3f} ms for the round's five entry-point calls; "
             f"{upd_name} {upd_ms:.4f} ms (bound {bounds[upd_name][-1]:.4f} ms, {upd_bytes} B, "
@@ -1166,8 +1358,11 @@ def phase_fig9(dev, check: KernelCheck):
             f"{q_ms[1]:.4f} ms (bound {q_bound[1]:.4f} ms, {q_bytes[1]} B, "
             f"{q_ms[1] / q_bound[1]:.2f}x, {FIG9_QUERIES / q_ms[1] * 1e3:.6g} q/s), "
             f"core {core_q_ms:.3f} ms (all-hit); "
-            f"successor {s_ms:.4f} ms (bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-            f"{s_bytes} B, {FIG9_SUCC / s_ms * 1e3:.6g} q/s), core {core_s_ms:.3f} ms; "
+            f"successor {s_ms:.4f} ms (bound {bounds['flix_successor'][-1]:.4f} ms, "
+            f"{s_bytes} B, {s_ms / bounds['flix_successor'][-1]:.2f}x, "
+            f"{FIG9_SUCC / s_ms * 1e3:.6g} q/s), core {core_s_ms:.3f} ms; fence rows "
+            f"{f_ms:.4f} ms queued (bound {bounds['flix_fence_rows'][-1]:.4f} ms, {f_bytes} B, "
+            f"{f_ms / bounds['flix_fence_rows'][-1]:.2f}x); "
             + "".join(f"{k} {v:.4f} ms; " for k, v in side_ms.items())
             + f"launches {counts}")
 
@@ -1185,6 +1380,8 @@ def phase_fig9(dev, check: KernelCheck):
             want, plain["flix_successor"] = host_ms(
                 lambda: fs.flix_successor_reference(*planes, succ))
             check.hold("flix_successor", want, (s_key, s_val), "fig9 round 7")
+            want, plain["flix_fence_rows"] = host_ms(lambda: fs.next_rows(*planes[:3]))
+            check.hold("flix_fence_rows", want, (nxk, nxv), "fig9 round 7")
             del want
         state = new_state
         del new_state, upd_args
@@ -1252,7 +1449,7 @@ def phase_serve(dev):
     getset_slot: dict[int, int] = {}
     prev_gs = np.zeros(0, np.int64)
     pins: dict[int, tuple] = {}
-    names = ("flix_apply", "flix_apply_staged", "flix_apply_range")
+    names = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_fence_rows")
     launches = {k: 0 for k in names}
     step_ms = {"update": [], "read": []}
     now = 0
@@ -1332,7 +1529,7 @@ def phase_serve(dev):
             check_same_state(f"serve step {i}", idx.state, ref.state)
             if not torch.equal(idx.state.exps, ref.state.exps):
                 raise AssertionError(f"serve step {i}: the expiry plane differs")
-            if counts["flix_apply_staged"] < 2 or counts["flix_apply_range"] < 2:
+            if min(counts[k] for k in names[1:]) < 2:  # the two planes of TTL
                 raise AssertionError(f"serve step {i}: kernels not launched: {counts}")
             assert int(got.stats["restructure_retries"]) == 0, got.stats
             pins[idx.version] = (idx.state, now)
@@ -1858,6 +2055,18 @@ def phase_moe(dev, check: KernelCheck):
     }
 
 
+def merge(measured: dict, new: dict) -> None:
+    """Add one phase's kernel measurements to ``measured``.  A kernel that an
+    earlier phase measured (the fence rows: phases 4 and 5) keeps that
+    phase's times and adds this phase's launches and worst error."""
+    for k, m in new.items():
+        if k in measured:
+            old = measured[k]
+            m = dict(old, launches=old["launches"] + m["launches"],
+                     err=max(old["err"], m["err"]))
+        measured[k] = m
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1887,11 +2096,11 @@ def main() -> int:
         ("3d", lambda: phase_kernel_ops(dev, check)),
         ("3g", lambda: phase_walk(dev, check)),
         ("3f", lambda: phase_gemm(dev, check)),
-        ("4", lambda: measured.update(phase_main(dev))),
-        ("5", lambda: measured.update(phase_fig9(dev, check))),
+        ("4", lambda: merge(measured, phase_main(dev))),
+        ("5", lambda: merge(measured, phase_fig9(dev, check))),
         ("6", lambda: serve_launches.update(phase_serve(dev))),
-        ("7", lambda: measured.update(phase_range(dev, check))),
-        ("8", lambda: measured.update(phase_moe(dev, check))),
+        ("7", lambda: merge(measured, phase_range(dev, check))),
+        ("8", lambda: merge(measured, phase_moe(dev, check))),
     ]
     measured, serve_launches = {}, {}
     for label, run in phases:

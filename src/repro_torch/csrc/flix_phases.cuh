@@ -1,32 +1,26 @@
 // Per-bucket phases of FliX, as device functions shared by the kernels.
 //
-// Two kinds of worker here:
-//   * the stripe workers of a block own one bucket stripe in shared memory
-//     at a time: the single-buffer stripe kernel of flix_apply.cu, and
-//     nothing else since the insert and delete kernels became a warp per
-//     bucket.  Its persistent blocks walk many buckets; every warp of a
-//     block but the last (the producer that stages the next buckets) is a
-//     stripe worker, and the workers meet at a named barrier
-//     (sync_workers).  The block phases are the formulas of the JAX
-//     reference (repro/kernels/flix_apply.py _stripe_body,
-//     repro/kernels/flix_insert.py _insert_kernel,
-//     repro/kernels/flix_delete.py _delete_kernel, repro/core/insert.py
-//     _merge_one_bucket) with the TPU's O(S^2) compare-count masks replaced
-//     by block scans and binary searches, which give the same ranks because
-//     every sequence searched here is ascending;
-//   * a warp owns one bucket and answers its slice of a sorted query batch
-//     (flix_successor): node and in-node position are popcounts of warp
-//     ballots, the paper's tile vote, and the warp finds its slice by binary
-//     search of the bucket's fences (warp_bucket_slice), the flipped routing
-//     of the paper done by the bucket itself.
+// The stripe workers of a block own one bucket stripe in shared memory at a
+// time: the single-buffer stripe kernel of flix_apply.cu, and nothing else
+// since the insert and delete kernels became a warp per bucket.  Its
+// persistent blocks walk many buckets; every warp of a block but the last
+// (the producer that stages the next buckets) is a stripe worker, and the
+// workers meet at a named barrier (sync_workers).  The block phases are the
+// formulas of the JAX reference (repro/kernels/flix_apply.py _stripe_body,
+// repro/kernels/flix_insert.py _insert_kernel, repro/kernels/flix_delete.py
+// _delete_kernel, repro/core/insert.py _merge_one_bucket) with the TPU's
+// O(S^2) compare-count masks replaced by block scans and binary searches,
+// which give the same ranks because every sequence searched here is
+// ascending.
 // The staged stripe kernel and the insert and delete kernels
 // (flix_apply_staged.cu, flix_insert.cu, flix_delete.cu) are a warp per
-// bucket too; they run the stripe phases in the warp form of flix_warp.cuh
+// bucket; they run the stripe phases in the warp form of flix_warp.cuh
 // and share only the per-element formulas here (region_of, chunk_dest,
 // locate, lower_bound) and the ApplyArgs of the fused pass, so that the
 // single-buffer kernel stays an independent second witness of the staged
-// one.  The point-query kernel (flix_query.cu) keeps its own device
-// functions: a warp owns a run of buckets and answers a lane per query.
+// one.  The point-query and successor kernels (flix_query.cu,
+// flix_successor.cu) share the pieces of flix_runs.cuh: a warp owns a run
+// of buckets and answers a lane per query.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,70 +53,6 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int x) {
   return lo;
 }
 
-// ---------------------------------------------------------------------------
-// the flipped routing
-// ---------------------------------------------------------------------------
-
-// Bucket b's slice [start, end) of the ascending batch a[0, n): the entries
-// in (mkba[b-1], mkba[b]] (bucket 0 has no lower fence), equal to
-// repro/core/batch.py bucket_slices.  Two lanes of a warp search at once and
-// broadcast to all 32 lanes; every lane of the warp must call it.
-__device__ __forceinline__ int2 warp_bucket_slice(const int* mkba, int b, const int* a,
-                                                  int n, int lane) {
-  int x = 0;
-  if (lane == 0) x = b == 0 ? 0 : upper_bound(a, n, mkba[b - 1]);
-  if (lane == 1) x = upper_bound(a, n, mkba[b]);
-  const int start = __shfl_sync(kFull, x, 0);
-  const int end = __shfl_sync(kFull, x, 1);
-  return make_int2(start, max(end, start));
-}
-
-// ---------------------------------------------------------------------------
-// locate by ballot (one warp, any row width)
-// ---------------------------------------------------------------------------
-
-// Number of entries of row[0, n) below q: lane l votes for row[c + l] in
-// each 32-wide chunk c, and lanes past n vote false.  Every lane of the
-// warp must call it; all get the count.
-__device__ __forceinline__ int warp_count_below(const int* row, int n, int q, int lane) {
-  int c = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    c += __popc(__ballot_sync(kFull, j < n && row[j] < q));
-  }
-  return c;
-}
-
-// Number of entries of row[0, n) that are not EMPTY (active node slots of a
-// node_max row), by the same ballots.
-__device__ __forceinline__ int warp_count_active(const int* row, int n, int lane) {
-  int c = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    c += __popc(__ballot_sync(kFull, j < n && row[j] != kEmpty));
-  }
-  return c;
-}
-
-// Where query q sits in a bucket, located by a warp: nidx = nodes whose max
-// is below q (the node is nidx clamped to the last slot), raw_pos = keys of
-// that node below q (pos is raw_pos clamped to the last lane).  Formulas of
-// repro/kernels/ref.py flix_point_query_ref.
-struct WarpLocated {
-  int nidx, node, raw_pos, pos;
-};
-
-__device__ __forceinline__ WarpLocated warp_locate(const int* keys_b, const int* nmax_b,
-                                                   int npb, int ns, int q, int lane) {
-  WarpLocated l;
-  l.nidx = warp_count_below(nmax_b, npb, q, lane);
-  l.node = min(l.nidx, npb - 1);
-  l.raw_pos = warp_count_below(keys_b + (size_t)l.node * ns, ns, q, lane);
-  l.pos = min(l.raw_pos, ns - 1);
-  return l;
-}
-
-// ---------------------------------------------------------------------------
 // ---------------------------------------------------------------------------
 // block-wide pieces of the stripe passes
 // ---------------------------------------------------------------------------

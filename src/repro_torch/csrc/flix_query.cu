@@ -3,7 +3,8 @@
 // Replaces the TPU kernel repro/kernels/flix_query.py:_query_kernel (with its
 // one-hot MXU gather _exact_gather_i32), launched by flix_point_query_pallas.
 //
-// Persistent warps, a run of buckets each, a lane per query.  The grid holds
+// Persistent warps, a run of buckets each, a lane per query, on the pieces
+// of flix_runs.cuh that the successor kernel shares.  The grid holds
 // as many warps as the card keeps resident (the occupancy API times the SMs);
 // warp w owns the contiguous buckets [w * run, (w + 1) * run), run at least
 // kRunMin, so each warp routes once: one warp-cooperative 32-ary search of
@@ -36,63 +37,13 @@
 // ms at 3.35 TB/s; chip_smoke.py computes it from each run's queries.
 #include <cuda_runtime.h>
 
-#include <atomic>
-#include <cstdint>
-
-#include "flix_phases.cuh"
+#include "flix_runs.cuh"
 
 namespace {
 
 using namespace flix;
 
 constexpr int kThreads = 256;  // 8 warps a block
-constexpr int kRunMin = 64;    // fewest buckets a warp owns (two fence groups)
-
-// Number of entries of ascending a[0, n) at or below x, by the whole warp:
-// while more than 32 entries are left, lane l reads the pivot ending the
-// l-th of 32 equal steps and a ballot keeps the step holding the answer.
-// Every lane must call it; all get the count.
-__device__ int warp_upper_bound32(const int* __restrict__ a, int n, int x, int lane) {
-  long long lo = 0, hi = n;  // the answer lies in [lo, hi]; a[lo, hi) is unread
-  while (hi - lo > 32) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long at = lo + (lane + 1) * step - 1;
-    const int c = __popc(__ballot_sync(kFull, at < hi && a[at] <= x));
-    hi = min(lo + (c + 1) * step - 1, hi);
-    lo = min(lo + c * step, hi);
-  }
-  const long long at = lo + lane;
-  return (int)lo + __popc(__ballot_sync(kFull, at < hi && a[at] <= x));
-}
-
-// Number of the group's fences below x, where lane j holds fence j
-// (ascending, EMPTY past the group): a binary search over shuffles.  Every
-// lane must call it, each with its own x.
-__device__ __forceinline__ int fences_below(int fence, int x) {
-  int i = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) i += __shfl_sync(kFull, fence, i + s - 1) < x ? s : 0;
-  return i + (__shfl_sync(kFull, fence, i) < x);
-}
-
-// Number of entries of row[0, n) below x, read by one lane: 16-byte loads
-// when vec (the row 16-byte aligned and n a multiple of 4).
-__device__ __forceinline__ int count_below(const int* __restrict__ row, int n, int x,
-                                           bool vec) {
-  int c = 0;
-  if (vec) {
-    const int4* r4 = reinterpret_cast<const int4*>(row);
-#pragma unroll 8
-    for (int j = 0; j < n / 4; ++j) {
-      const int4 v = __ldg(r4 + j);
-      c += (v.x < x) + (v.y < x) + (v.z < x) + (v.w < x);
-    }
-  } else {
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) c += __ldg(row + j) < x;
-  }
-  return c;
-}
 
 __global__ void __launch_bounds__(kThreads)
     flix_query_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
@@ -146,9 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// resident warps of flix_query_kernel, by device (0: not asked yet)
-constexpr int kMaxDevices = 64;
-std::atomic<long long> resident_warps[kMaxDevices];
+ResidentWarps resident_warps;  // of flix_query_kernel
 
 }  // namespace
 
@@ -160,27 +109,10 @@ int flix_query_launch(const int* keys, const int* vals, const int* node_max,
   const cudaStream_t s = (cudaStream_t)stream;
   if (nq == 0) return 0;
   if (nb == 0) return (int)cudaMemsetAsync(out, 0xff, (size_t)nq * sizeof(int), s);  // all -1
-  int dev = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  // the resident warps share the buckets in contiguous runs; their number
-  // depends on the kernel and the device alone, so it is asked once a device
-  long long resident = resident_warps[dev].load(std::memory_order_relaxed);
-  if (resident == 0) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flix_query_kernel,
-                                                           kThreads, 0)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident = (long long)per_sm * sms * (kThreads / 32);
-    resident_warps[dev].store(resident, std::memory_order_relaxed);
-  }
-  long long run = (nb + resident - 1) / resident;
-  if (run < kRunMin) run = kRunMin;
-  const long long warps = (nb + run - 1) / run;
+  long long run = 0, warps = 0;
+  const cudaError_t e = run_length(resident_warps, (const void*)flix_query_kernel, kThreads,
+                                   nb, &run, &warps);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (int)((warps + kThreads / 32 - 1) / (kThreads / 32));
   flix_query_kernel<<<blocks, kThreads, 0, s>>>(keys, vals, node_max, mkba, q, out, nq, nb,
                                                 npb, ns, (int)run);

@@ -12,12 +12,14 @@ flix_range      — standalone dense RANGE scans: a count kernel and the
                   gather as the scatter (``csrc/flix_range.cu``)
 flix_query      — flipped point queries, one warp per run of buckets and
                   a lane per query (``csrc/flix_query.cu``)
-flix_successor  — flipped successor queries with the suffix-min fence rows
-                  (``csrc/flix_successor.cu``)
-flix_insert     — TL-Bulk insertion, one thread block per bucket
-                  (``csrc/flix_insert.cu``)
-flix_delete     — TL-Bulk deletion, one thread block per bucket
-                  (``csrc/flix_delete.cu``)
+flix_successor  — flipped successor queries, one warp per run of buckets
+                  and a lane per query (``csrc/flix_successor.cu``), and
+                  their suffix-min fence rows (``csrc/flix_fence_rows.cu``,
+                  also run by ``flix_apply``)
+flix_insert     — TL-Bulk insertion, persistent warps, a warp per bucket
+                  at a time (``csrc/flix_insert.cu``)
+flix_delete     — TL-Bulk deletion, persistent warps, a warp per bucket
+                  at a time (``csrc/flix_delete.cu``)
 grouped_matmul  — ragged grouped GEMM over expert-sorted rows, float32
                   accumulate and output: TMA and wgmma for bf16 weights
                   (``csrc/grouped_matmul_sm90.cu``), mma.sync or f32 FMA

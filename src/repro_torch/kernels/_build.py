@@ -47,6 +47,8 @@ SIGNATURES = {
     "flix_range_gather_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
     "flix_query_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "flix_successor_launch": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "flix_fence_rows_scratch_ints": ([_I], ctypes.c_longlong),
+    "flix_fence_rows_launch": ([_P] * 7 + [_I] * 3 + [_P], _I),
     "flix_insert_smem_bytes": ([_I, _I], _I),
     "flix_insert_launch": ([_P] * 13 + [_I] * 3 + [_P], _I),
     "flix_delete_smem_bytes": ([_I, _I], _I),

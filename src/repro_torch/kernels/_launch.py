@@ -22,6 +22,7 @@ LAUNCHES = {
     "flix_apply_range": 0,
     "flix_point_query": 0,
     "flix_successor": 0,
+    "flix_fence_rows": 0,
     "flix_insert": 0,
     "flix_delete": 0,
     "flix_range_count": 0,

@@ -30,8 +30,9 @@ routing (``core.ops.route``), then the stripe pass, then two small steps
 that the TPU wrapper predicted *before* its one launch and that run here
 *between* the two launches, from the exact post-update state:
 
-  * the successor fence rows (``_successor_fence_rows`` of the new state,
-    O(nb)) resolve SUCCESSOR ops past their bucket's largest key;
+  * the successor fence rows of the new state (O(nb): the fence-row
+    kernel of ``csrc/flix_fence_rows.cu``, ``flix_successor.fence_rows``)
+    resolve SUCCESSOR ops past their bucket's largest key;
   * the RANGE rank plumbing (post-update live-count prefix ``pref`` and
     each op's ``[lo, hi)`` ranks by node search, O(N·(npb+ns))) feeds the
     shared ``range_offsets``/``range_slot_ranks`` formulas.
@@ -58,7 +59,6 @@ from repro_torch.core.config import DEFAULT_MAX_RESULTS
 from repro_torch.core.ops import OP_POINT, OP_RANGE, OP_SUCCESSOR, route
 from repro_torch.core.query import (
     _bucket_index,
-    _successor_fence_rows,
     live_prefix,
     node_rank,
     range_offsets,
@@ -69,6 +69,7 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels._launch import _require_cuda, check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
 from repro_torch.kernels.flix_range import range_gather
+from repro_torch.kernels.flix_successor import fence_rows
 
 # the stripe pass's inputs, in the order of the C entry point
 _PASS_INPUTS = (
@@ -394,10 +395,10 @@ def flix_apply(
 
     # SUCCESSOR past its bucket's largest post-update key: the first key of
     # the next non-empty bucket, from the post-update fence rows
-    smin_pad, sidx_pad = _successor_fence_rows(okeys, onn)
-    b1 = _bucket_index(state, key) + 1
-    out_key = smin_pad[b1]
-    out_val = ovals[sidx_pad[b1], 0, 0]
+    next_key, next_val = fence_rows(okeys, ovals, num_nodes=onn)
+    b = _bucket_index(state, key)
+    out_key = next_key[b]
+    out_val = next_val[b]
     fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
     succ_key = torch.where(fallback, out_key, succ_key)
     value = torch.where(fallback & (out_key != EMPTY), out_val, value)

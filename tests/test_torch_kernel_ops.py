@@ -397,7 +397,7 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_run_all", fake_run_all)
     path, _ = _build.build()
     cus = sorted(f.name for f in _build.sources() if f.suffix == ".cu")
-    assert len(cus) == 9  # the nine .cu sources of csrc/
+    assert len(cus) == 10  # the ten .cu sources of csrc/
     compiles, (link,) = calls
     assert sorted(Path(c[-1]).name for c in compiles) == cus
     assert all("-c" in c and "arch=compute_90a,code=sm_90a" in c for c in compiles)

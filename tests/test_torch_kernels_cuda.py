@@ -657,6 +657,200 @@ def test_query_kernel_edge_cases_on_card(cuda, ns, npb, case):
 
 
 # ---------------------------------------------------------------------------
+# the successor kernel's edge cases (tests/test_torch_successor_cases.py
+# holds the same cases' plain version against the JAX reference on the CPU)
+# ---------------------------------------------------------------------------
+
+SUCCESSOR_CASES = QUERY_CASES + ("past_last_key", "empty_run_across_runs", "empty_tail",
+                                 "next_head_not_found")
+
+
+def _tops(st):
+    """Each non-empty bucket's largest key (EMPTY for an empty bucket)."""
+    nn = st.num_nodes.cpu().numpy().astype(np.int64)
+    nm = st.node_max.cpu().numpy()
+    top = nm[np.arange(st.num_buckets), np.maximum(nn - 1, 0)].astype(np.int64)
+    return np.where(nn > 0, top, EMPTY)
+
+
+def _fallbacks(st, q):
+    """Whether each query lies past its bucket's largest key (so that its
+    answer is the bucket's fence row), by the reference's formula."""
+    b = np.minimum(np.searchsorted(st.mkba.cpu().numpy(), q, side="left"), st.num_buckets - 1)
+    nidx = (st.node_max.cpu().numpy()[b] < np.asarray(q)[:, None]).sum(1)
+    return nidx >= st.num_nodes.cpu().numpy()[b]
+
+
+def _empty_buckets(st, bs, device):
+    """``st`` with every key of the buckets ``bs`` deleted, and those keys."""
+    live, _ = _stored(st)
+    dead = np.concatenate([live[(live >= _bucket_range(st, b)[0])
+                                & (live <= _bucket_range(st, b)[1])] for b in bs])
+    dead = np.sort(dead).astype(np.int32)
+    return tcore.delete(st, torch.as_tensor(dead, device=device))[0], dead
+
+
+def _drop_tops(st, bs, device):
+    """``st`` with the largest key of each bucket of ``bs`` that holds two or
+    more deleted, so that those buckets' fences lie above their keys."""
+    nc = st.node_count.cpu().numpy().sum(1)
+    bs = np.asarray(bs)[nc[bs] > 1]
+    top = np.sort(_tops(st)[bs]).astype(np.int32)
+    return tcore.delete(st, torch.as_tensor(top, device=device))[0]
+
+
+def _past_tops(st, bs):
+    """For each bucket of ``bs`` whose largest key lies below its fence, the
+    key one above it and the fence itself: queries past the bucket's keys."""
+    top, mk = _tops(st)[bs], st.mkba.cpu().numpy()[bs].astype(np.int64)
+    below = top < mk
+    return np.concatenate([top[below] + 1, mk[below]])
+
+
+def successor_case(ns, npb, case, device):
+    """A state, a sorted int32 query batch and a check of the case's premise
+    (called with the state and the batch), for one edge of the successor
+    kernel: the point-query kernel's ten cases, then queries that all fall
+    to the fence rows, a run of emptied buckets longer than two warps' runs,
+    an emptied tail, and fence rows whose key is stored with the value
+    NOT_FOUND.  The same inputs on every device."""
+    if case in QUERY_CASES:
+        return query_case(ns, npb, case, device)
+    rng = np.random.default_rng(2000 * SUCCESSOR_CASES.index(case) + 10 * ns + npb)
+    st = _query_state(rng, ns, npb, device)
+    nb = st.num_buckets
+
+    def inside(bs, n):  # n random keys of each bucket's range
+        return np.concatenate([rng.integers(*_bucket_range(st, b), n, endpoint=True)
+                               for b in bs])
+
+    if case == "past_last_key":  # one above each bucket's largest key, and the fence
+        st = _drop_tops(st, np.arange(nb), device)
+        q = _past_tops(st, np.arange(nb))
+
+        def premise(st, q):
+            assert len(q) > nb and _fallbacks(st, q).all()
+
+    elif case == "empty_run_across_runs":  # buckets 100-239 emptied: three runs
+        gone = list(range(100, 100 + 2 * RUN_MIN + 12))
+        st, dead = _empty_buckets(st, gone, device)
+        top = int(_tops(st)[99])
+        some = dead[:: max(1, len(dead) // 200)]
+        q = np.concatenate([some, inside(gone[::5], 2), inside([99], 20),
+                            [top, top + 1, _bucket_range(st, 99)[1]]])
+
+        def premise(st, q):
+            nn = st.num_nodes.cpu().numpy()
+            c = _slices(st, q)
+            assert (nn[gone] == 0).all() and nn[99] > 0 and nn[gone[-1] + 1] > 0
+            assert (c[gone[::5]] > 0).all() and c[99] > 0
+            assert len(gone) > 2 * RUN_MIN
+
+    elif case == "empty_tail":  # every bucket from nb - 40 on emptied
+        gone = list(range(nb - 40, nb))
+        st, dead = _empty_buckets(st, gone, device)
+        top = int(_tops(st)[nb - 41])
+        some = dead[:: max(1, len(dead) // 200)]
+        q = np.concatenate([some, inside(gone, 2), inside([nb - 41], 20),
+                            [top, top + 1, tcore.MAX_VALID, EMPTY]])
+
+        def premise(st, q):
+            nn = st.num_nodes.cpu().numpy()
+            assert (nn[gone] == 0).all() and nn[nb - 41] > 0
+            assert (_slices(st, q)[gone] > 0).all()
+            assert _fallbacks(st, q)[q > top].all()
+
+    else:  # "next_head_not_found": every third bucket's head stored with NOT_FOUND
+        heads = st.keys[2::3, 0, 0].cpu().numpy()
+        heads = np.sort(heads[heads != EMPTY])
+        st = tcore.insert(st, torch.as_tensor(heads, device=device),
+                          torch.full((len(heads),), tcore.NOT_FOUND, dtype=torch.int32,
+                                     device=device))[0]
+        prev = np.arange(1, nb - 1, 3)  # the buckets before them
+        st = _drop_tops(st, prev, device)
+        q = _past_tops(st, prev)
+
+        def premise(st, q):
+            k, v = _stored(st)
+            nxt = k[np.searchsorted(k, q)]  # each query's successor
+            assert _fallbacks(st, q).all() and len(q) > nb // 6
+            assert (v[np.searchsorted(k, nxt)] == tcore.NOT_FOUND).all()
+
+    return st, np.sort(np.asarray(q, np.int64)).astype(np.int32), premise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SUCCESSOR_CASES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
+def test_successor_kernel_edge_cases_on_card(cuda, ns, npb, case):
+    """The run-per-warp successor kernel, after the fence-row kernel, equals
+    its plain version and core.successor_query byte for byte: the
+    point-query kernel's edges, queries past every bucket's largest key,
+    140 emptied buckets in a row, an emptied tail and fence rows whose
+    value is NOT_FOUND."""
+    st, q, premise = successor_case(ns, npb, case, cuda)
+    premise(st, q)
+    planes = (st.keys, st.vals, st.node_max, st.mkba, torch.as_tensor(q, device=cuda))
+    before = dict(LAUNCHES)
+    got = fs.flix_successor(*planes)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_successor"] == before["flix_successor"] + 1
+    assert LAUNCHES["flix_fence_rows"] == before["flix_fence_rows"] + 1
+    _equal(fs.flix_successor_reference(*planes), got, f"flix_successor ({case})")
+    _equal(tcore.successor_query(st, planes[-1]), got, f"successor vs core ({case})")
+
+
+# ---------------------------------------------------------------------------
+# the fence-row kernel (tests/test_torch_successor_cases.py holds next_rows
+# against the Pallas wrapper's rows on the CPU)
+# ---------------------------------------------------------------------------
+
+FENCE_CASES = ("random", "equal_heads", "empty_buckets", "all_empty", "empty_tail", "nb_1")
+
+
+def fence_case(case, ns, npb, device, nb=300):
+    """Planes as a state holds them, a bucket's active node_max entries
+    first, with random non-monotone heads: ``(keys3d, vals3d, node_max,
+    num_nodes)``.  Empty buckets keep junk keys, which the rows must
+    ignore."""
+    rng = np.random.default_rng(100 * FENCE_CASES.index(case) + 10 * ns + npb + nb)
+    nb = 1 if case == "nb_1" else nb
+    keys = rng.integers(0, tcore.MAX_VALID, (nb, npb, ns), endpoint=True).astype(np.int32)
+    vals = rng.integers(-(1 << 31), 1 << 31, (nb, npb, ns)).astype(np.int32)
+    active = rng.integers(1, npb + 1, nb)
+    if case == "equal_heads":  # few distinct heads, 0 and MAX_VALID among them
+        keys[:, 0, 0] = rng.choice([0, 7, 1000, tcore.MAX_VALID], nb)
+        active[rng.random(nb) < 0.2] = 0
+    elif case == "empty_buckets":  # scattered, and runs longer than a tile
+        active[rng.random(nb) < 0.4] = 0
+        for a in rng.integers(0, nb, 4):
+            active[a : a + min(nb // 8, 3000)] = 0
+    elif case == "all_empty":
+        active[:] = 0
+    elif case == "empty_tail":
+        active[-min(40, nb - 1):] = 0
+    nm = rng.integers(0, tcore.MAX_VALID, (nb, npb), endpoint=True).astype(np.int32)
+    nm = np.where(np.arange(npb) < active[:, None], nm, EMPTY).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (keys, vals, nm, active.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FENCE_CASES)
+@pytest.mark.parametrize("nb", [300, (1 << 20) + 3])  # the second: no multiple of a tile
+def test_fence_rows_kernel_on_card(cuda, case, nb):
+    """The fence-row kernel equals next_rows byte for byte, from node_max
+    (flix_successor) and from num_nodes (the fused apply), one launch each."""
+    keys, vals, nm, nn = fence_case(case, 4, 2, cuda, nb)
+    for kw in (dict(node_max=nm), dict(num_nodes=nn)):
+        before = LAUNCHES["flix_fence_rows"]
+        got = fs.fence_rows(keys, vals, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flix_fence_rows"] == before + 1
+        _equal(fs.next_rows(keys, vals, **kw), got, f"fence rows ({case}, {list(kw)})")
+
+
+# ---------------------------------------------------------------------------
 # the insert and delete kernels' edge cases (tests/test_torch_update_cases.py
 # holds the same cases' plain versions against the JAX package on the CPU)
 # ---------------------------------------------------------------------------
