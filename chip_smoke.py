@@ -41,7 +41,16 @@ line, and no phase catches its own failure:
                 vals at EMPTY slots, and states of 1, grid - 1 and grid + 1
                 buckets.
                 flix_range's count and scatter: ranges on bucket fences,
-                hi <= lo, over emptied buckets, and a truncating budget.
+                hi <= lo, over emptied buckets, and a truncating budget;
+                then (3e) their edges at 2^20 keys in 32x16, 8x8, 32x64 and
+                4x2: bounds on and around every seventh fence, a run of 140
+                emptied buckets with ranges inside and across it, hi <= lo,
+                bounds at 0, EMPTY - 1 and EMPTY, narrow ranges inside a
+                wide one, odd budgets that truncate (517, 100003), a state
+                with no keys, states of 1, 1023 and 1025 buckets, and a
+                2^20-op batch under a 1% RANGE mask; each pass once against
+                its plain version (the count also on the ops in reverse
+                order), flix_range against dense_range_scan.
                 grouped_matmul within its float32 tolerance, in f32, bf16
                 and both mixes: the reference's sweep shapes, empty groups,
                 one group holding every row, T, D and F that are multiples
@@ -62,10 +71,16 @@ line, and no phase catches its own failure:
                 max_results=65536) through make_ops → apply_ops_safe →
                 unsort, each with ``pipeline="off"`` (the single-buffer
                 stripe kernel) and ``pipeline="on"`` (the staged one).  Each
-                run must launch its stripe kernel and the range gather and
+                run must launch its stripe kernel and the range gather,
+                must rank its RANGE ops by one launch of the count kernel
+                (flix_apply_rank) and by no torch node_rank on the card, and
                 must not retry; both runs are held against each other and
                 against the port's plain-torch reference engine on the card,
-                and the final state passes the invariant checker;
+                and the final state passes the invariant checker.  Each batch
+                times the range gather and the count kernel at the fused
+                call site by CUDA events, as a call and queued behind a
+                sleep of the card, each beside its bound, an empty kernel,
+                and the torch node_rank pair the count kernel replaced;
   5. fig9     — the paper's Fig. 9 round schedule (benchmarks/query_qtmf.py)
                 through ``repro_torch.kernels.ops`` on a fresh build of the
                 same size: 4 insert rounds of 2^22 fresh keys, then 4 delete
@@ -94,6 +109,10 @@ line, and no phase catches its own failure:
   7. range    — ``flix_range`` on a 2^24-key build: 2^16 narrow (~16 keys)
                 and 2^12 wide (~256 keys) ranges (benchmarks/range_mix.py)
                 under max_results = 2^20, held against ``dense_range_scan``;
+                the count kernel and the scatter timed in turns, as a call
+                and queued, beside their bounds, and the seam's parts apart
+                (node metadata, the engine's _node_metadata it replaced,
+                live_prefix, range_offsets, range_slot_ranks);
                 ``range_query`` and ``with_successor_cache`` against their
                 definitions;
   8. moe      — the flipped MoE FFN of examples/moe_routing.py (make_plan,
@@ -124,6 +143,7 @@ without one, or when it runs without the repository's ``src/`` beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -162,6 +182,12 @@ SERVE_TTL = 40  # clock units an appended page lives (4 steps)
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
 FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
+RANGE_EDGE_KEYS = 1 << 20  # phase 3e: keys of each range edge case's state
+# phase 3e: budgets at which csrc/flix_range.cu's gather takes 1, 2 and 4
+# slots a thread on an H100 (132 SMs of 2048 resident threads); the middle
+# one odd, so that a thread's last slot is alone; 2^19 - 3 ops also take 2
+# a lane in the count kernel
+RANGE_EDGE_BUDGETS = (1 << 17, (1 << 19) - 3, 1 << 21)
 MOE_PREFILL = 4096  # tokens of a prefill chunk
 # (run, configuration, tokens; None: decode_32k's global batch, skewed router)
 MOE_RUNS = (
@@ -180,6 +206,8 @@ KERNELS = {
     "flix_apply_staged": ("flix_apply_staged.cu",
                           "src/repro/kernels/flix_apply.py:414"),
     "flix_apply_range": ("flix_range.cu", "src/repro/kernels/flix_apply.py:327"),
+    # the jnp rank plumbing that flix_apply_pallas runs beside its kernel
+    "flix_apply_rank": ("flix_range.cu", "src/repro/kernels/flix_apply.py:558"),
     "flix_point_query": ("flix_query.cu", "src/repro/kernels/flix_query.py:54"),
     "flix_successor": ("flix_successor.cu", "src/repro/kernels/flix_successor.py:45"),
     # the jnp scan that flix_successor_pallas runs beside its kernel
@@ -406,15 +434,19 @@ class KernelCheck:
         is_range = ops.tag == core.OP_RANGE
         g, pref, *_ = fa.range_slots(new, is_range, ops.key, ops.val, max_results)
         rk = fa.flix_apply_range_pass(g, pref, new.node_count, new.keys, new.vals)
+        meta = (new.keys, new.node_count, new.node_max, new.mkba, pref, ops.key, ops.val)
+        rank = fr.flix_range_count(*meta, is_range=is_range, kernel="flix_apply_rank")
         torch.cuda.synchronize()
         e2 = max_abs_err(fr.flix_range_gather_reference(g, pref, new.node_count, new.keys,
                                                         new.vals), rk)
+        e4 = max_abs_err(fr.flix_range_count_reference(*meta, is_range=is_range), rank)
         self.err["flix_apply"] = max(self.err["flix_apply"], e1)
         self.err["flix_apply_range"] = max(self.err["flix_apply_range"], e2)
+        self.err["flix_apply_rank"] = max(self.err["flix_apply_rank"], e4)
         log(f"  {label}: flix_apply max_abs_err={e1}, flix_apply_staged max_abs_err={e3} "
             f"(against the plain version and the single-buffer kernel), "
-            f"flix_apply_range max_abs_err={e2}")
-        if e1 or e2 or e3:
+            f"flix_apply_range max_abs_err={e2}, flix_apply_rank max_abs_err={e4}")
+        if e1 or e2 or e3 or e4:
             raise AssertionError(f"{label}: a kernel disagrees with its plain version")
         return args, got
 
@@ -495,6 +527,10 @@ def phase_kernels(dev, check: KernelCheck):
         log(f"  {lo.numel()} ranges, max_results={budget}: count and scatter equal their "
             f"plain versions, the scan equals dense_range_scan; truncated {int(got[4])}")
         assert (int(got[4]) > 0) == (budget == 512)
+    gen_edges = torch.Generator(device=dev)  # its own draws: the cases after keep theirs
+    gen_edges.manual_seed(SEED + 6)
+    for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2)):
+        range_edge_case(dev, check, gen_edges, ns, npb, RANGE_EDGE_KEYS)
 
     log("phase 3h: the fence-row kernel at 2^20 + 3 buckets")
     fence_rows_case(dev, check, gen)
@@ -597,8 +633,168 @@ def range_case(check, state, lo, hi, max_results, label):
     return got
 
 
+def range_edge_case(dev, check: KernelCheck, gen, ns, npb, n_keys):
+    """flix_range's count kernel and gather (as the scatter) against their
+    plain versions on their edges, one launch each (the count also on the
+    ops in reverse order: it needs no order), and ``flix_range`` against
+    ``dense_range_scan`` where every op is a RANGE op: bounds on, below and
+    above the fences; a run of 140 emptied buckets (140 equal entries of
+    pref, where only the last owns a rank), with ranges inside it and
+    across it; hi <= lo; bounds at 0, EMPTY - 1 and EMPTY with 0 and
+    MAX_VALID stored; narrow ranges inside one wide range; budgets that are
+    no multiple of 32 and truncate; a state with no keys; states of 1, 1023
+    and 1025 buckets, gathered at 1, 2 and 4 slots a thread; and a mixed batch's sorted keys under a 1% RANGE mask
+    (the fused path's form)."""
+    from repro_torch import core
+    from repro_torch.core.query import live_prefix, range_offsets, range_slot_ranks
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flix_range as fr
+
+    label = f"range edges, {n_keys} keys, ns={ns} npb={npb}"
+
+    def rand(n, lo=0, hi=1 << 28):
+        return torch.randint(int(lo), int(hi), (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    keys = torch.unique(rand(n_keys, 1))
+    keys[-1] = core.MAX_VALID
+    keys = torch.cat([keys.new_zeros(1), keys]).to(torch.int32)
+    state = core.build(keys, keys ^ 0x33, node_size=ns, nodes_per_bucket=npb)
+    nb = state.num_buckets
+    run = torch.arange(nb // 3, nb // 3 + 140, device=dev)
+    dead = state.keys[run]
+    state = core.delete(state, sorted_i32(dead[dead != core.EMPTY], keys[5000:9000:3]))[0]
+    assert bool((state.num_nodes[run] == 0).all()), label
+    mk = state.mkba.long()
+    r0, r1 = int(run[0]), int(run[-1])
+    b = torch.arange(0, nb - 2, 7, device=dev)
+    narrow = rand(20000, mk[100], mk[3100])
+    inner = rand(2000, mk[r0 - 1] + 1, mk[r1])
+    gone = state.keys[state.keys != core.EMPTY]
+    empty = core.delete(state, torch.sort(gone).values)[0]
+    assert int(empty.num_nodes.sum()) == 0, label
+    lo_ge = rand(20000)
+    hi_ge = lo_ge - rand(20000, 0, 3000)
+    hi_ge[::4] = lo_ge[::4]
+    hi_ge[::25] = lo_ge[::25] + (1 << 16)
+    batch = rand(1 << 20)
+    mask = torch.rand(1 << 20, generator=gen, device=dev) < 0.01
+    big = RANGE_EDGE_BUDGETS[-1]
+    edge_lo = torch.tensor([0, 0, 0, 1, core.EMPTY - 1, core.EMPTY - 1, core.EMPTY, core.EMPTY],
+                           device=dev)
+    edge_hi = torch.tensor([0, 1, core.EMPTY, core.EMPTY, core.EMPTY - 1, core.EMPTY,
+                            core.EMPTY, 0], device=dev)
+    wide = rand(20000)
+    # name: (state, lo, hi, budgets, mask)
+    cases = {
+        "bucket_fences": (state, torch.cat([mk[b], mk[b] + 1, mk[b] - 1, mk[b]]),
+                          torch.cat([mk[b] + 1, mk[b + 1], mk[b] + 1, mk[b + 2] + 1]),
+                          (big,), None),
+        "emptied_run": (state, torch.cat([inner, rand(500, mk[r0 - 6] + 1, mk[r0 - 1] + 1)]),
+                        torch.cat([inner + 100, rand(500, mk[r1 + 1] + 1, mk[r1 + 4])]),
+                        (big,), None),
+        "lo_ge_hi": (state, lo_ge, hi_ge, (big,), None),
+        "edge_keys": (state, torch.cat([edge_lo, mk[-3:], rand(20, mk[-2], core.MAX_VALID)]),
+                      torch.cat([edge_hi, torch.full((23,), core.EMPTY, device=dev)]),
+                      (1 << 22,), None),
+        "all_overlap": (state, torch.cat([mk[100:101], narrow]),
+                        torch.cat([mk[3100:3101], torch.minimum(narrow + rand(20000, 1, 1 << 12),
+                                                                mk[3100])]),
+                        (big,), None),
+        "odd_budget": (state, wide, wide + rand(20000, 1, 1 << 20), (517, 100003), None),
+        "empty_state": (empty, wide, wide + rand(20000, -10, 1 << 20), (big,), None),
+        "masked": (state, batch, torch.where(mask, batch + rand(1 << 20, 1, 1 << 11),
+                                             rand(1 << 20, -(1 << 31), 1 << 31)),
+                   (1 << 16,), mask),
+    }
+    p = max(1, ns // 2)  # keys a bucket holds at build
+    # the searches' step counts at their edges: nb fences for the count
+    # kernel, nb + 1 pref entries for the gather; ranges on, below and above
+    # every fence, gathered at 1, 2 and 4 slots a thread (RANGE_EDGE_BUDGETS)
+    for n_b in (1, 1023, 1025):
+        small = torch.sort(keys[torch.randperm(keys.numel(), generator=gen, device=dev)
+                                [: n_b * p]]).values
+        st = core.build(small, small ^ 0x33, node_size=ns, nodes_per_bucket=npb)
+        assert st.num_buckets == n_b, (label, n_b, st.num_buckets)
+        f = st.mkba.long()
+        nxt = torch.cat([f[1:], f[-1:]])
+        cases[f"nb_{n_b}"] = (st, torch.cat([f, f - 1, f + 1, small.long()]),
+                              torch.cat([nxt + 1, f + 1, nxt, small.long() + 1]),
+                              RANGE_EDGE_BUDGETS, None)
+    i32 = torch.iinfo(torch.int32)
+    out = []
+    for case, (st, lo, hi, budgets, m) in cases.items():
+        lo, order = torch.sort(lo, stable=True)
+        lo = lo.to(torch.int32)
+        hi = torch.clamp(hi[order], i32.min, i32.max).to(torch.int32)
+        m = None if m is None else m[order]
+        is_range = torch.ones_like(lo, dtype=torch.bool) if m is None else m
+        pref = live_prefix(st.node_count)
+        meta = (st.keys, st.node_count, st.node_max, st.mkba, pref, lo, hi)
+        before = dict(LAUNCHES)
+        want = fr.flix_range_count_reference(*meta, is_range=m)
+        check.hold("flix_range_count", want, fr.flix_range_count(*meta, is_range=m),
+                   f"{label}, {case}")
+        back = (*meta[:5], lo.flip(0).contiguous(), hi.flip(0).contiguous())
+        check.hold("flix_range_count", [w.flip(0) for w in want], fr.flix_range_count(
+            *back, is_range=None if m is None else m.flip(0).contiguous()),
+                   f"{label}, {case}, ops in reverse order")
+        n_k2 = RANGE_EDGE_BUDGETS[1]  # 2 ops a lane, where all of a big case take 4
+        if lo.numel() > 2 * n_k2:
+            part = (*meta[:5], lo[:n_k2], hi[:n_k2])
+            sub = None if m is None else m[:n_k2]
+            check.hold("flix_range_count", fr.flix_range_count_reference(*part, is_range=sub),
+                       fr.flix_range_count(*part, is_range=sub), f"{label}, {case}, {n_k2} ops")
+        for budget in budgets:
+            start, _, total, trunc = range_offsets(want[1], is_range, budget)
+            gargs = (range_slot_ranks(want[0], start, total, budget), pref, st.node_count,
+                     st.keys, st.vals)
+            check.hold("flix_range_scatter", fr.flix_range_gather_reference(*gargs),
+                       fr.flix_range_scatter(*gargs), f"{label}, {case} @ {budget}")
+            if m is None:
+                got = fr.flix_range(st.keys, st.vals, st.mkba, lo, hi, max_results=budget)
+                oracle = core.dense_range_scan(st, is_range, lo, hi, max_results=budget)
+                if max_abs_err(oracle, got):
+                    raise AssertionError(f"{label}, {case}: flix_range differs from "
+                                         "dense_range_scan")
+            assert (int(trunc) > 0) == (case == "odd_budget"), (label, case, int(trunc))
+        counted = {k: LAUNCHES[k] - before[k] for k in ("flix_range_count", "flix_range_scatter")}
+        extra = 0 if m is not None else len(budgets)  # flix_range's own launches
+        extra_count = extra + (lo.numel() > 2 * n_k2)
+        assert counted == {"flix_range_count": 2 + extra_count,
+                           "flix_range_scatter": len(budgets) + extra}, (label, case, counted)
+        out.append(f"{case} {lo.numel()} ops, {int(want[1].sum())} keys")
+    zero = int((cases["lo_ge_hi"][2] <= cases["lo_ge_hi"][1]).sum())
+    log(f"  {label}: {nb} buckets (140 emptied in a row), count and scatter equal their plain "
+        f"versions, flix_range equals dense_range_scan: " + "; ".join(out)
+        + f" ({zero} with hi <= lo)")
+
+
+@contextlib.contextmanager
+def torch_rank_calls():
+    """Within the block, count the calls of the plain ``node_rank`` (the
+    torch form of the range ranks) on card tensors: yields the list they are
+    appended to."""
+    from repro_torch.core import query
+    from repro_torch.kernels import flix_range as fr
+
+    calls, plain = [], query.node_rank
+
+    def counted(*args):
+        if args[-1].is_cuda:
+            calls.append(args[-1].numel())
+        return plain(*args)
+
+    query.node_rank = fr.node_rank = counted
+    try:
+        yield calls
+    finally:
+        query.node_rank = fr.node_rank = plain
+
+
 def phase_main(dev):
     from repro_torch import core
+    from repro_torch.core.query import node_rank
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels import flix_apply as fa
     from repro_torch.kernels import flix_range as fr
@@ -616,10 +812,11 @@ def phase_main(dev):
         f"build {build_ms:.1f} ms")
     cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS)
     launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range",
-                               "flix_fence_rows")}
+                               "flix_apply_rank", "flix_fence_rows")}
     e2e = {"off": [], "on": []}
     k_ms = {"off": [], "on": []}
-    r_ms, rbounds = [], []
+    r_ms, r_queued_ms, rbounds, empty_ms = [], [], [], []
+    rank_ms, rank_queued_ms, rank_bounds, node_rank_ms = [], [], [], []
     f_ms, f_call_ms, f_torch_ms, fbounds = [], [], [], []
     bounds = {"off": [], "on": []}
     for i in range(FULL_BATCHES):
@@ -629,17 +826,22 @@ def phase_main(dev):
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            ops, perm = core.make_ops(tags, keys, vals)
-            new_state, res, stats = core.apply_ops_safe(
-                state, ops, config=cfg.replace(pipeline=pipe)
-            )
-            value = core.unsort(res["value"], perm)
-            torch.cuda.synchronize()
+            with torch_rank_calls() as torch_ranks:
+                ops, perm = core.make_ops(tags, keys, vals)
+                new_state, res, stats = core.apply_ops_safe(
+                    state, ops, config=cfg.replace(pipeline=pipe)
+                )
+                value = core.unsort(res["value"], perm)
+                torch.cuda.synchronize()
             e2e[pipe].append((time.perf_counter() - t0) * 1e3)
             counts = {k: LAUNCHES[k] for k in launches}
             for k in (STRIPE_KERNEL[pipe], "flix_apply_range", "flix_fence_rows"):
                 if counts[k] < 1:
                     raise AssertionError(f"batch {i} ({pipe}): kernel {k} was not launched")
+            if counts["flix_apply_rank"] != 1 or torch_ranks:
+                raise AssertionError(f"batch {i} ({pipe}): its RANGE ops were ranked by "
+                                     f"{counts['flix_apply_rank']} count-kernel launches and "
+                                     f"{len(torch_ranks)} torch node_rank calls (want 1, 0)")
             other = STRIPE_KERNEL["on" if pipe == "off" else "off"]
             if counts[other]:
                 raise AssertionError(f"batch {i} ({pipe}): {other} was launched")
@@ -674,7 +876,25 @@ def phase_main(dev):
         is_range = ops.tag == core.OP_RANGE
         g, pref, *_ = fa.range_slots(new_state, is_range, ops.key, ops.val, cfg.max_results)
         rargs = (g, pref, new_state.node_count, new_state.keys, new_state.vals)
-        r_ms.append(event_ms(lambda: fa.flix_apply_range_pass(*rargs), 10))
+        gather = lambda: fa.flix_apply_range_pass(*rargs)  # noqa: E731
+        r_ms.append(event_ms(gather, 10))
+        r_queued_ms.append(queued_ms(gather, 10))
+        empty_ms.append(queued_ms(lambda: torch.cuda._sleep(0), 10))  # an empty kernel
+        # the RANGE ranks at the fused call site: the count kernel, and the
+        # parent's torch node_rank pair over every op, in turns
+        meta = (new_state.keys, new_state.node_count, new_state.node_max, new_state.mkba,
+                pref, ops.key, ops.val)
+        rank = lambda: fr.flix_range_count(*meta, is_range=is_range,  # noqa: E731
+                                           kernel="flix_apply_rank")
+        torch_rank = lambda: (node_rank(*meta[:5], ops.key),  # noqa: E731
+                              node_rank(*meta[:5], ops.val))
+        rt = [event_ms(rank, 10), event_ms(torch_rank, 3), event_ms(torch_rank, 3),
+              event_ms(rank, 10)]
+        rank_ms.append((rt[0] + rt[3]) / 2)
+        node_rank_ms.append((rt[1] + rt[2]) / 2)
+        rank_queued_ms.append(queued_ms(rank, 10))
+        rank_bounds.append(range_count_bytes(new_state, ops.key, ops.val, is_range)
+                           / HBM_BYTES_PER_S * 1e3)
         outs = fa.flix_apply_pass(*args)
         moved = {pipe: stripe_pass_bytes(state, ops, r, outs, staged=pipe == "on")
                  for pipe in bounds}
@@ -701,7 +921,11 @@ def phase_main(dev):
             f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['on'][-1]:.4f} ms "
             f"(bounds {bounds['off'][-1]:.4f} / {bounds['on'][-1]:.4f} ms, "
             f"{moved['off']} / {moved['on']} bytes), "
-            f"range gather {r_ms[-1]:.4f} ms; fence rows {f_ms[-1]:.4f} ms queued, "
+            f"range gather {r_ms[-1]:.4f} ms a call, {r_queued_ms[-1]:.4f} queued (bound "
+            f"{rbounds[-1]:.5f} ms; an empty kernel {empty_ms[-1]:.4f} queued); RANGE ranks "
+            f"by the count kernel {rank_ms[-1]:.4f} ms a call, {rank_queued_ms[-1]:.4f} "
+            f"queued (bound {rank_bounds[-1]:.4f} ms), by the torch node_rank pair "
+            f"{node_rank_ms[-1]:.4f} ms; fence rows {f_ms[-1]:.4f} ms queued, "
             f"{f_call_ms[-1]:.4f} ms a call (bound {fbounds[-1]:.4f} ms; the torch pass "
             f"{f_torch_ms[-1]:.4f} ms); "
             f"reference engine {ref_ms:.3f} ms; "
@@ -726,15 +950,25 @@ def phase_main(dev):
     rk = fa.flix_apply_range_pass(*rargs)
     rwant, rplain_ms = host_ms(lambda: fr.flix_range_gather_reference(*rargs))
     e2 = max_abs_err(rwant, rk)
+    rank_want, rank_plain_ms = host_ms(
+        lambda: fr.flix_range_count_reference(*meta, is_range=is_range))
+    e5 = max_abs_err(rank_want, rank())
     fwant, fplain_ms = host_ms(torch_rows)
     e4 = max_abs_err(fwant, kernel_rows())
     log(f"  plain versions at main-path shapes: flix_apply {plain_ms:.3f} ms "
         f"(max_abs_err {e1}; flix_apply_staged's {e3}), range gather {rplain_ms:.3f} ms "
-        f"(max_abs_err {e2}), fence rows {fplain_ms:.3f} ms (max_abs_err {e4})")
+        f"(max_abs_err {e2}), RANGE ranks {rank_plain_ms:.3f} ms (max_abs_err {e5}), "
+        f"fence rows {fplain_ms:.3f} ms (max_abs_err {e4})")
+    log(f"  range gather: mean {fmean(r_ms):.4f} ms a call, {fmean(r_queued_ms):.4f} queued, "
+        f"against its {fmean(rbounds):.5f} ms bound and an empty kernel's "
+        f"{fmean(empty_ms):.4f} ms queued; RANGE ranks: the count kernel mean "
+        f"{fmean(rank_ms):.4f} ms a call, {fmean(rank_queued_ms):.4f} queued, against its "
+        f"{fmean(rank_bounds):.4f} ms bound; the torch node_rank pair it replaced "
+        f"{fmean(node_rank_ms):.4f} ms")
     log(f"  fence rows: mean {fmean(f_ms):.4f} ms queued ({fmean(f_call_ms):.4f} ms a call) "
         f"against their {fmean(fbounds):.4f} ms bound; the torch pass they replace "
         f"{fmean(f_torch_ms):.4f} ms")
-    if e1 or e2 or e3 or e4:
+    if e1 or e2 or e3 or e4 or e5:
         raise AssertionError("a kernel disagrees with its plain version at main-path shapes")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {
@@ -743,10 +977,17 @@ def phase_main(dev):
         "flix_apply_staged": dict(launches=launches["flix_apply_staged"],
                                   ms=fmean(k_ms["on"]), plain_ms=plain_ms,
                                   bound_ms=fmean(bounds["on"]), err=e3),
-        "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_ms),
-                                 plain_ms=rplain_ms, bound_ms=fmean(rbounds), err=e2),
+        # ms: these kernels' device time (queued), since their wrappers' host
+        # time is longer; call_ms: their time as a call
+        "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_queued_ms),
+                                 call_ms=fmean(r_ms), plain_ms=rplain_ms,
+                                 bound_ms=fmean(rbounds), err=e2),
+        "flix_apply_rank": dict(launches=launches["flix_apply_rank"],
+                                ms=fmean(rank_queued_ms), call_ms=fmean(rank_ms),
+                                plain_ms=rank_plain_ms, bound_ms=fmean(rank_bounds), err=e5),
         "flix_fence_rows": dict(launches=launches["flix_fence_rows"], ms=fmean(f_ms),
-                                plain_ms=fplain_ms, bound_ms=fmean(fbounds), err=e4),
+                                call_ms=fmean(f_call_ms), plain_ms=fplain_ms,
+                                bound_ms=fmean(fbounds), err=e4),
     }
 
 
@@ -1449,7 +1690,8 @@ def phase_serve(dev):
     getset_slot: dict[int, int] = {}
     prev_gs = np.zeros(0, np.int64)
     pins: dict[int, tuple] = {}
-    names = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_fence_rows")
+    names = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_apply_rank",
+             "flix_fence_rows")
     launches = {k: 0 for k in names}
     step_ms = {"update": [], "read": []}
     now = 0
@@ -1576,20 +1818,26 @@ def phase_serve(dev):
     return launches
 
 
-def range_count_bytes(state, lo, hi) -> int:
-    """Bytes the count pass must move: each op's bounds read and its rank and
-    count written; for each bound the two fences that place it (``mkba[b-1]
-    < q <= mkba[b]``); and, once per bucket or row that the bounds touch, the
+def range_count_bytes(state, lo, hi, is_range=None) -> int:
+    """Bytes the count pass must move: each op's rank and count written, the
+    mask read where there is one, and the bounds of the ops under it; for
+    each bound that needs a rank (every such op's lo, and its hi where hi >
+    lo: else the count is 0) the two fences that place it (``mkba[b-1] < q
+    <= mkba[b]``); and, once per bucket or row that those bounds touch, the
     bucket's ``pref`` entry, its node_max and node_count rows, and the key
     row that holds the bound."""
     nb, npb, ns = state.geometry
-    q = torch.cat([lo, hi])
+    n = lo.numel()
+    if is_range is not None:
+        lo, hi = lo[is_range], hi[is_range]
+    q = torch.cat([lo, hi[hi > lo]])
     b = torch.clamp(torch.searchsorted(state.mkba, q), max=nb - 1)
     fences = torch.unique(torch.cat([b, torch.clamp(b - 1, min=0)])).numel()
     nidx = (state.node_max[b] < q[:, None]).sum(1)
     rows = torch.unique((b * (npb + 1) + nidx)[nidx < npb]).numel()
     buckets = torch.unique(b).numel()
-    return 16 * lo.numel() + 4 * fences + (8 * npb + 4) * buckets + 4 * ns * rows
+    mask = n if is_range is not None else 0
+    return 8 * n + mask + 8 * lo.numel() + 4 * fences + (8 * npb + 4) * buckets + 4 * ns * rows
 
 
 def gather_bytes(g, pref, npb) -> int:
@@ -1651,28 +1899,42 @@ def phase_range(dev, check):
     pref = live_prefix(state.node_count)
     meta = (state.keys, state.node_count, state.node_max, state.mkba, pref, lo, hi)
     rank_lo, full = fr.flix_range_count(*meta)
-
-    def seam():
-        _node_metadata(state.keys)
-        p = live_prefix(state.node_count)
-        start, _, total, _ = range_offsets(full, is_range, RANGE_MAX_RESULTS)
-        return p, range_slot_ranks(rank_lo, start, total, RANGE_MAX_RESULTS)
-
-    _, g = seam()
+    start, _, total, _ = range_offsets(full, is_range, RANGE_MAX_RESULTS)
+    g = range_slot_ranks(rank_lo, start, total, RANGE_MAX_RESULTS)
+    # the seam's parts: the node metadata (flix_range's pass, and the
+    # engine's _node_metadata that it replaced), the live-count prefix, the
+    # budget split and the slot ranks
+    parts = {
+        "node metadata": lambda: fr.node_metadata(state.keys),
+        "the engine's _node_metadata": lambda: _node_metadata(state.keys),
+        "live_prefix": lambda: live_prefix(state.node_count),
+        "range_offsets": lambda: range_offsets(full, is_range, RANGE_MAX_RESULTS),
+        "range_slot_ranks": lambda: range_slot_ranks(rank_lo, start, total,
+                                                     RANGE_MAX_RESULTS),
+    }
+    seam_ms = {name: event_ms(fn, 5) for name, fn in parts.items()}
+    replaced = "the engine's _node_metadata"
+    if max_abs_err(_node_metadata(state.keys)[:2], fr.node_metadata(state.keys)):
+        raise AssertionError("flix_range's node metadata differs from _node_metadata")
     gargs = (g, pref, state.node_count, state.keys, state.vals)
-    c_ms = event_ms(lambda: fr.flix_range_count(*meta), 10)
-    seam_ms = event_ms(seam, 10)
-    s_ms = event_ms(lambda: fr.flix_range_scatter(*gargs), 10)
+    count = lambda: fr.flix_range_count(*meta)  # noqa: E731
+    scatter = lambda: fr.flix_range_scatter(*gargs)  # noqa: E731
+    turns = [event_ms(count, 10), event_ms(scatter, 10), event_ms(scatter, 10),
+             event_ms(count, 10)]
+    c_ms, s_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    c_queued, s_queued = queued_ms(count, 10), queued_ms(scatter, 10)
     c_want, c_plain = host_ms(lambda: fr.flix_range_count_reference(*meta))
     check.hold("flix_range_count", c_want, (rank_lo, full), "phase 7")
     s_want, s_plain = host_ms(lambda: fr.flix_range_gather_reference(*gargs))
     check.hold("flix_range_scatter", s_want, fr.flix_range_scatter(*gargs), "phase 7")
     c_bytes = range_count_bytes(state, lo, hi)
     s_bytes = gather_bytes(g, pref, npb)
-    log(f"  count {c_ms:.4f} ms (bound {c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {c_bytes} B), "
-        f"seam {seam_ms:.4f} ms, scatter {s_ms:.4f} ms (bound "
-        f"{s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {s_bytes} B); plain versions: count "
-        f"{c_plain:.3f} ms, scatter {s_plain:.3f} ms")
+    log(f"  count {c_ms:.4f} ms a call, {c_queued:.4f} queued (bound "
+        f"{c_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {c_bytes} B), scatter {s_ms:.4f} ms a "
+        f"call, {s_queued:.4f} queued (bound {s_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+        f"{s_bytes} B); plain versions: count {c_plain:.3f} ms, scatter {s_plain:.3f} ms")
+    log("  seam: " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in seam_ms.items())
+        + f"; flix_range's seam {sum(seam_ms.values()) - seam_ms[replaced]:.4f} ms")
 
     # range_query and with_successor_cache against their definitions
     q = 1 << 12
@@ -1697,11 +1959,14 @@ def phase_range(dev, check):
     log(f"  range_query ({q} ranges, max_results={mr}) equals the dense scan of [lo, hi]; "
         f"with_successor_cache is idempotent and leaves 2^22 successor answers unchanged")
     return {
-        "flix_range_count": dict(launches=counts["flix_range_count"], ms=c_ms, plain_ms=c_plain,
+        # ms: device time (queued), the wrappers' host time being longer than
+        # the kernels'; call_ms: the time as a call
+        "flix_range_count": dict(launches=counts["flix_range_count"], ms=c_queued,
+                                 call_ms=c_ms, plain_ms=c_plain,
                                  bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3, err=0),
-        "flix_range_scatter": dict(launches=counts["flix_range_scatter"], ms=s_ms,
-                                   plain_ms=s_plain, bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3,
-                                   err=0),
+        "flix_range_scatter": dict(launches=counts["flix_range_scatter"], ms=s_queued,
+                                   call_ms=s_ms, plain_ms=s_plain,
+                                   bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3, err=0),
     }
 
 def random_offsets(T: int, E: int, gen) -> torch.Tensor:
@@ -2122,6 +2387,8 @@ def main() -> int:
             "launches": m["launches"],
             "max_abs_err": max(m["err"], check.err[kname]),
             "ms": m["ms"],
+            # where ms is queued device time, the kernel's time as a call too
+            **({"call_ms": m["call_ms"]} if "call_ms" in m else {}),
             "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],
             "bound_by": m.get("bound_by", "bytes"),

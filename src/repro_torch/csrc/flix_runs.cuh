@@ -8,7 +8,7 @@
 // then walks its queries in windows of 32 against the run's fences held 32
 // at a time in lanes (fences_below).  A lane reads its bucket's rows with
 // count_below.  run_length sizes the runs for a kernel on the current
-// device.
+// device, from warps_resident, which other grids sized to the card use too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,18 +76,16 @@ struct ResidentWarps {
   std::atomic<long long> by_device[kMaxDevices];
 };
 
-// The run length (buckets a warp owns) and the number of warps for nb
-// buckets, when kernel runs in blocks of threads threads on the current
-// device: the resident warps share the buckets in contiguous runs of at
-// least kRunMin.
-inline cudaError_t run_length(ResidentWarps& table, const void* kernel, int threads, int nb,
-                              long long* run, long long* warps) {
+// The warps of kernel that the current device keeps resident in blocks of
+// threads threads, asked once a device and kept in table.
+inline cudaError_t warps_resident(ResidentWarps& table, const void* kernel, int threads,
+                                  long long* resident) {
   int dev = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  long long resident = table.by_device[dev].load(std::memory_order_relaxed);
-  if (resident == 0) {
+  long long r = table.by_device[dev].load(std::memory_order_relaxed);
+  if (r == 0) {
     int sms = 0, per_sm = 0;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return e;
@@ -95,9 +93,22 @@ inline cudaError_t run_length(ResidentWarps& table, const void* kernel, int thre
         cudaSuccess)
       return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident = (long long)per_sm * sms * (threads / 32);
-    table.by_device[dev].store(resident, std::memory_order_relaxed);
+    r = (long long)per_sm * sms * (threads / 32);
+    table.by_device[dev].store(r, std::memory_order_relaxed);
   }
+  *resident = r;
+  return cudaSuccess;
+}
+
+// The run length (buckets a warp owns) and the number of warps for nb
+// buckets, when kernel runs in blocks of threads threads on the current
+// device: the resident warps share the buckets in contiguous runs of at
+// least kRunMin.
+inline cudaError_t run_length(ResidentWarps& table, const void* kernel, int threads, int nb,
+                              long long* run, long long* warps) {
+  long long resident = 0;
+  const cudaError_t e = warps_resident(table, kernel, threads, &resident);
+  if (e != cudaSuccess) return e;
   long long r = (nb + resident - 1) / resident;
   if (r < kRunMin) r = kRunMin;
   *run = r;

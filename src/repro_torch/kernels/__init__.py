@@ -6,10 +6,11 @@ ops             — the kernel entry points on a state, with the reference's
 flix_apply      — fused mixed-batch apply: merge + delete + post-update reads
                   in one thread block per bucket (``csrc/flix_apply.cu``) or
                   one warp per bucket with cp.async-staged stripes
-                  (``csrc/flix_apply_staged.cu``), plus the dense RANGE
-                  gather
-flix_range      — standalone dense RANGE scans: a count kernel and the
-                  gather as the scatter (``csrc/flix_range.cu``)
+                  (``csrc/flix_apply_staged.cu``), plus the RANGE ranks (the
+                  count kernel under a RANGE mask) and the dense RANGE gather
+flix_range      — standalone dense RANGE scans: a count kernel, a lane per
+                  op, and the gather as the scatter, a thread per 1, 2 or 4
+                  consecutive slots (``csrc/flix_range.cu``)
 flix_query      — flipped point queries, one warp per run of buckets and
                   a lane per query (``csrc/flix_query.cu``)
 flix_successor  — flipped successor queries, one warp per run of buckets

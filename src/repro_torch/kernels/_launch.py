@@ -20,6 +20,7 @@ LAUNCHES = {
     "flix_apply": 0,
     "flix_apply_staged": 0,
     "flix_apply_range": 0,
+    "flix_apply_rank": 0,
     "flix_point_query": 0,
     "flix_successor": 0,
     "flix_fence_rows": 0,

@@ -22,8 +22,10 @@ other's witness on the card:
     slot of its ring; a bucket with no insert and no delete writes its rows
     straight back.
 
-A second launch fills the dense RANGE output, one thread per slot (the
-gather of ``csrc/flix_range.cu``, shared with ``kernels/flix_range``).
+Two more launches serve the RANGE ops: the count kernel of
+``csrc/flix_range.cu`` ranks them under the batch's RANGE mask
+(``flix_apply_rank``), and its gather fills the dense RANGE output, a thread
+per slot (``flix_apply_range``; both shared with ``kernels/flix_range``).
 
 Host side (:func:`flix_apply`, the port of ``_fused_apply``): the single
 routing (``core.ops.route``), then the stripe pass, then two small steps
@@ -33,9 +35,11 @@ that the TPU wrapper predicted *before* its one launch and that run here
   * the successor fence rows of the new state (O(nb): the fence-row
     kernel of ``csrc/flix_fence_rows.cu``, ``flix_successor.fence_rows``)
     resolve SUCCESSOR ops past their bucket's largest key;
-  * the RANGE rank plumbing (post-update live-count prefix ``pref`` and
-    each op's ``[lo, hi)`` ranks by node search, O(N·(npb+ns))) feeds the
-    shared ``range_offsets``/``range_slot_ranks`` formulas.
+  * the RANGE rank plumbing (:func:`range_slots`: the post-update
+    live-count prefix ``pref``, and each RANGE op's ``[lo, hi)`` rank and
+    count by the count kernel under the RANGE mask, where the reference
+    ranks in jnp beside its kernel) feeds the shared
+    ``range_offsets``/``range_slot_ranks`` formulas.
 
 That replaces the reference's O(state) delete-membership pass and its
 per-bucket sort of (survivors ∪ insert slice), and needs no [nb, cap]
@@ -60,7 +64,6 @@ from repro_torch.core.ops import OP_POINT, OP_RANGE, OP_SUCCESSOR, route
 from repro_torch.core.query import (
     _bucket_index,
     live_prefix,
-    node_rank,
     range_offsets,
     range_slot_ranks,
 )
@@ -68,7 +71,7 @@ from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels._launch import _require_cuda, check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
-from repro_torch.kernels.flix_range import range_gather
+from repro_torch.kernels.flix_range import flix_range_count, range_gather
 from repro_torch.kernels.flix_successor import fence_rows
 
 # the stripe pass's inputs, in the order of the C entry point
@@ -339,15 +342,16 @@ def range_slots(
     max_results: int,
 ):
     """The RANGE plumbing against a post-update state: its live-count
-    prefix ``pref`` [nb+1], each op's ``[lo, hi)`` ranks, the shared budget
-    split, and the global rank of every output slot.  Returns ``(g, pref,
-    start, emit, truncated)`` — the range gather's inputs and the per-op
+    prefix ``pref`` [nb+1], each RANGE op's ``[lo, hi)`` rank and count (the
+    count kernel of ``csrc/flix_range.cu`` on the card, counted as
+    ``flix_apply_rank``, the other ops masked out), the shared budget split,
+    and the global rank of every output slot.  Returns ``(g, pref, start,
+    emit, truncated)`` — the range gather's inputs and the per-op
     segments."""
     pref = live_prefix(state.node_count)
     meta = (state.keys, state.node_count, state.node_max, state.mkba, pref)
-    rank_lo = node_rank(*meta, lo)
-    rank_hi = node_rank(*meta, hi)
-    full = torch.clamp(rank_hi - rank_lo, min=0)
+    rank_lo, full = flix_range_count(*meta, lo, hi, is_range=is_range,
+                                     kernel="flix_apply_rank")
     start, emit, total_emit, truncated = range_offsets(full, is_range, max_results)
     g = range_slot_ranks(rank_lo, start, total_emit, max_results)
     return g, pref, start, emit, truncated

@@ -6,23 +6,30 @@ exclusive-scan offsets: the contract of ``core.query.dense_range_scan``,
 which the fused apply path also keeps.  Two CUDA launches
 (``csrc/flix_range.cu``) around a torch seam:
 
-  * **pass 1, count** (``flix_range_count``): one thread per op finds the
-    global rank of ``lo`` and of ``hi`` in the node metadata — the owning
-    bucket's live-count fence, the counts of its nodes wholly below, the
-    position in the node that reaches the bound — and writes ``rank(lo)``
-    and the exact int32 count ``max(rank(hi) - rank(lo), 0)`` of stored
-    keys in ``[lo, hi)``.  Keys are packed at the front of each node and
-    chain-ordered (I1/I2), so no per-bucket row sort is needed, where the
-    TPU wrapper sorted every bucket row (O(nb·cap)) and its kernel voted
-    every stripe against every op window.
-  * **seam**: the node metadata derived from the key plane, the live-count
-    prefix ``pref`` (``core.query.live_prefix``),
+  * **pass 1, count** (``flix_range_count``): a thread per op finds the
+    global rank of ``lo`` from its bucket's live-count fence ``pref[b]``,
+    the keys of the nodes wholly below it and its position in the node
+    that reaches it, and the same for ``hi`` where ``hi > lo`` (the two
+    searches in lockstep, one walk of the rows when both bounds share a
+    bucket); it writes
+    ``rank(lo)`` and the exact int32 count ``max(rank(hi) - rank(lo), 0)``
+    of stored keys in ``[lo, hi)``.  An optional ``is_range`` mask gives the
+    other ops 0 and 0: the fused path ranks its few RANGE ops so
+    (``flix_apply.range_slots``, counted as ``flix_apply_rank``).  Keys are
+    packed at the front of each node and chain-ordered (I1/I2), so no
+    per-bucket row sort is needed, where the TPU wrapper sorted every
+    bucket row (O(nb·cap)) and its kernel voted every stripe against every
+    op window.
+  * **seam**: the node metadata (:func:`node_metadata`, one search of each
+    node row), the live-count prefix ``pref`` (``core.query.live_prefix``),
     then ``range_offsets`` and ``range_slot_ranks``, the formulas every
     executor shares, turn the counts into segments and one global rank per
     output slot.
-  * **pass 2, scatter** (``flix_range_scatter``): one thread per output slot
-    reads the key of its rank; the gather kernel of the fused apply path's
-    RANGE phase, launched here under its own count.
+  * **pass 2, scatter** (``flix_range_scatter``): a thread per 1, 2 or 4
+    consecutive output slots finds each slot's bucket by a search of
+    ``pref`` (the searches in lockstep), its node by the running node
+    counts, and reads the key and value of its rank; the gather kernel of
+    the fused apply path's RANGE phase, launched here under its own count.
 
 Each launch wrapper checks its tensors, runs its plain torch version when
 they lie on the CPU, and otherwise launches the kernel or raises.
@@ -32,7 +39,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.insert import _node_metadata
 from repro_torch.core.query import (
     gather_ranks,
     live_prefix,
@@ -40,14 +46,18 @@ from repro_torch.core.query import (
     range_offsets,
     range_slot_ranks,
 )
+from repro_torch.core.state import EMPTY
 from repro_torch.kernels._launch import check, launch
 
 _COUNT_INPUTS = ("keys", "node_count", "node_max", "mkba", "pref", "lo", "hi")
 
 
-def flix_range_count(keys, node_count, node_max, mkba, pref, lo, hi):
+def flix_range_count(keys, node_count, node_max, mkba, pref, lo, hi, *, is_range=None,
+                     kernel: str = "flix_range_count"):
     """Pass 1: ``(rank_lo, count)`` per op — the global rank of ``lo`` and the
-    number of stored keys in ``[lo, hi)``.  The CUDA kernel on the card,
+    number of stored keys in ``[lo, hi)``; 0 and 0 for an op outside the
+    optional bool mask ``is_range``.  The ops need no order.  The CUDA
+    kernel on the card, counted under ``kernel``;
     :func:`flix_range_count_reference` on the CPU."""
     nb, npb, ns = keys.shape
     dev = keys.device
@@ -59,22 +69,29 @@ def flix_range_count(keys, node_count, node_max, mkba, pref, lo, hi):
         raise ValueError("range count: mkba or pref disagrees with keys")
     if lo.shape != hi.shape or lo.dim() != 1:
         raise ValueError("range count: lo and hi must be aligned 1-d columns")
+    if is_range is not None:
+        check(dev, ("is_range",), (is_range,), dtypes=(torch.bool,))
+        if is_range.shape != lo.shape:
+            raise ValueError("range count: is_range must be aligned with lo")
     if dev.type == "cpu":
-        return flix_range_count_reference(*args)
+        return flix_range_count_reference(*args, is_range=is_range)
     q = lo.shape[0]
     rank_lo = torch.empty((q,), dtype=torch.int32, device=dev)
     count = torch.empty((q,), dtype=torch.int32, device=dev)
-    launch("flix_range_count", "flix_range_count_launch", dev, *args, rank_lo, count,
+    launch(kernel, "flix_range_count_launch", dev, *args, is_range, rank_lo, count,
            q, nb, npb, ns)
     return rank_lo, count
 
 
-def flix_range_count_reference(keys, node_count, node_max, mkba, pref, lo, hi):
+def flix_range_count_reference(keys, node_count, node_max, mkba, pref, lo, hi, *,
+                               is_range=None):
     """Plain torch version of pass 1 (same inputs and outputs)."""
     meta = (keys, node_count, node_max, mkba, pref)
     rank_lo = node_rank(*meta, lo)
     count = torch.clamp(node_rank(*meta, hi) - rank_lo, min=0)
-    return rank_lo, count
+    if is_range is None:
+        return rank_lo, count
+    return torch.where(is_range, rank_lo, 0), torch.where(is_range, count, 0)
 
 
 def range_gather(g, pref, node_count, keys, vals, *, kernel: str):
@@ -109,6 +126,21 @@ def flix_range_scatter(g, pref, node_count, keys, vals):
     return range_gather(g, pref, node_count, keys, vals, kernel="flix_range_scatter")
 
 
+def node_metadata(keys3d):
+    """``(node_count, node_max)`` [nb, npb] of a key plane whose node rows
+    are ascending with EMPTY padding (I1): a row's count is where EMPTY would
+    sort into it, one binary search of the row, and its max the key just
+    before.  Equal to ``core.insert._node_metadata``'s first two outputs on
+    such planes, without its [nb, npb, ns] bool plane."""
+    nb, npb, ns = keys3d.shape
+    rows = keys3d.reshape(nb * npb, ns)
+    empty = torch.full((nb * npb, 1), EMPTY, dtype=keys3d.dtype, device=keys3d.device)
+    count = torch.searchsorted(rows, empty, out_int32=True)
+    last = rows.gather(1, torch.clamp(count - 1, min=0).long())
+    node_max = torch.where(count > 0, last, EMPTY)
+    return count.reshape(nb, npb), node_max.reshape(nb, npb)
+
+
 def flix_range(keys3d, vals3d, mkba, sorted_lo, hi, *, max_results: int):
     """Dense ``[lo, hi)`` scans, the counterpart of ``flix_range_pallas``.
 
@@ -116,10 +148,10 @@ def flix_range(keys3d, vals3d, mkba, sorted_lo, hi, *, max_results: int):
     aligned with it.  Returns ``(keys [max_results], vals [max_results],
     start [Q], count [Q], truncated)``, equal to ``core.dense_range_scan``
     with every op a RANGE op.  The signature carries only the planes, as the
-    reference's does, so the node metadata is derived from ``keys3d`` by one
-    read of the key plane (where the TPU wrapper sorted every bucket row).
+    reference's does, so the node metadata is derived from ``keys3d`` by
+    :func:`node_metadata` (where the TPU wrapper sorted every bucket row).
     """
-    node_count, node_max, _ = _node_metadata(keys3d)
+    node_count, node_max = node_metadata(keys3d)
     lo = sorted_lo.to(torch.int32)
     hi = hi.to(torch.int32)
     pref = live_prefix(node_count)

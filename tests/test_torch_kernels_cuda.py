@@ -1082,10 +1082,16 @@ def test_range_kernels_match_plain_on_card(cuda, ns, npb):
     pref = live_prefix(st.node_count)
     meta = (st.keys, st.node_count, st.node_max, st.mkba, pref, lo_t, hi_t)
     _equal(fr.flix_range_count_reference(*meta), fr.flix_range_count(*meta), "range count")
-    g = torch.sort(torch.randint(-1, int(pref[-1]), (1 << 14,), device=cuda,
-                                 dtype=torch.int32)).values
-    gargs = (g, pref, st.node_count, st.keys, st.vals)
-    _equal(fr.flix_range_gather_reference(*gargs), fr.flix_range_scatter(*gargs), "scatter")
+    many_lo = torch.randint(0, 1 << 26, (RANGE_K2_SIZE,), device=cuda, dtype=torch.int32)
+    many = (*meta[:5], many_lo, many_lo + torch.randint_like(many_lo, -100, 1 << 14))
+    _equal(fr.flix_range_count_reference(*many), fr.flix_range_count(*many),
+           f"range count of {RANGE_K2_SIZE} ops")
+    for n in (1 << 14, RANGE_K2_SIZE):
+        g = torch.sort(torch.randint(-1, int(pref[-1]), (n,), device=cuda,
+                                     dtype=torch.int32)).values
+        gargs = (g, pref, st.node_count, st.keys, st.vals)
+        _equal(fr.flix_range_gather_reference(*gargs), fr.flix_range_scatter(*gargs),
+               f"scatter of {n} slots")
     is_range = torch.ones(lo_t.shape, dtype=torch.bool, device=cuda)
     for budget in (1024, 1 << 22):
         before = dict(LAUNCHES)
@@ -1095,6 +1101,202 @@ def test_range_kernels_match_plain_on_card(cuda, ns, npb):
         want = tcore.dense_range_scan(st, is_range, lo_t, hi_t, max_results=budget)
         _equal(want, got, f"flix_range @ {budget}")
         assert (int(got[4]) > 0) == (budget == 1024)
+
+
+# ---------------------------------------------------------------------------
+# the range kernels' edge cases (tests/test_torch_range_cases.py holds the
+# same cases' plain versions against the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+RANGE_CASES = ("bucket_fences", "emptied_run", "lo_ge_hi", "edge_keys", "all_overlap",
+               "odd_budget", "empty_state", "nb_1", "nb_1023", "nb_1025", "masked")
+RANGE_BUDGET = 1 << 16  # holds every case's results but odd_budget's
+ODD_BUDGET = 517  # no multiple of 32, below odd_budget's results
+# csrc/flix_range.cu's kernels take 1, 2 or 4 ops or slots a thread, the
+# fewest that fit the card's resident threads in one wave: on an H100 (132
+# SMs of 2048 threads) this many ops or slots take 2, where the cases' own
+# take 1 and flix_range's 2^22 takes 4; odd, so a thread's last slot is alone
+RANGE_K2_SIZE = (1 << 19) - 3
+
+
+def in_range(st, lo, hi):
+    """Stored keys in each ``[lo, hi)``, from the state's sorted keys."""
+    k, _ = _stored(st)
+    return np.maximum(np.searchsorted(k, hi) - np.searchsorted(k, lo), 0)
+
+
+def range_case(ns, npb, case, device):
+    """A state, a sorted int32 ``lo`` column, an aligned ``hi``, a budget,
+    an ``is_range`` mask (None: every op a RANGE op) and a check of the
+    case's premise (called with those five), for one edge of the range
+    kernels; the same inputs on every device."""
+    rng = np.random.default_rng(3000 * RANGE_CASES.index(case) + 10 * ns + npb)
+    buckets = {"nb_1": 1, "nb_1023": 1023, "nb_1025": 1025}.get(case, QUERY_BUCKETS)
+    st = _query_state(rng, ns, npb, device, edge_keys=case == "edge_keys", buckets=buckets)
+    nb = st.num_buckets
+    mk = st.mkba.cpu().numpy().astype(np.int64)
+    budget, mask = RANGE_BUDGET, None
+
+    def inside(bs, n):  # n random keys of each bucket's range
+        return np.concatenate([rng.integers(*_bucket_range(st, b), n, endpoint=True)
+                               for b in bs])
+
+    def fits(st, lo, hi, budget, mask):
+        return in_range(st, lo, hi)[mask if mask is not None else slice(None)].sum() <= budget
+
+    if case == "bucket_fences":  # bounds on, below and above the fences
+        b = np.arange(0, nb - 2, 2)
+        lo = np.concatenate([mk[b], mk[b] + 1, mk[b] - 1, mk[b], mk[b] + 1])
+        hi = np.concatenate([mk[b] + 1, mk[b + 1], mk[b] + 1, mk[b + 1] + 1, mk[b + 2]])
+
+        def premise(st, lo, hi, budget, mask):
+            assert np.isin(mk[:-2:2], lo).all() and np.isin(mk[1:-1:2], hi).all()
+            assert fits(st, lo, hi, budget, mask)
+
+    elif case == "emptied_run":  # buckets 100-239 emptied: 140 equal pref entries in a row
+        gone = list(range(100, 240))
+        st, _ = _empty_buckets(st, gone, device)
+        inner = inside(gone[::7], 2)
+        across = inside([95, 97, 99], 3)
+        lo = np.concatenate([inner, inner, across, inside(gone[::20], 1)])
+        hi = np.concatenate([inner + 5000, np.full(len(inner), mk[gone[-1]] + 1),
+                             inside([241, 260, 300], 3), inside([245], len(gone[::20]))])
+
+        def premise(st, lo, hi, budget, mask):
+            nn = st.num_nodes.cpu().numpy()
+            c = in_range(st, lo, hi)
+            assert (nn[gone] == 0).all() and len(gone) > 4 * 32  # over four fence groups
+            over = (lo <= mk[gone[0] - 1]) & (hi > mk[gone[-1] + 1])  # across the run
+            assert over.sum() >= 9 and (c[over] > 0).all() and (c == 0).sum() > 10
+            assert fits(st, lo, hi, budget, mask)
+
+    elif case == "lo_ge_hi":  # hi <= lo, among a few true ranges
+        lo = np.sort(rng.integers(0, 1 << 26, 600))
+        hi = lo - rng.integers(0, 3000, 600)
+        hi[::4] = lo[::4]
+        hi[::25] = lo[::25] + rng.integers(1, 1 << 16, len(lo[::25]))
+
+        def premise(st, lo, hi, budget, mask):
+            assert (hi <= lo).sum() > 500 and (hi == lo).sum() > 100
+            assert (in_range(st, lo, hi)[hi > lo] > 0).any()
+
+    elif case == "edge_keys":  # bounds at 0, EMPTY - 1 (MAX_VALID) and EMPTY
+        first = inside([0], 10)
+        lo = np.concatenate([[0, 0, 0, 1, EMPTY - 1, EMPTY - 1, EMPTY, EMPTY],
+                             mk[-3:], inside([nb - 1], 20), first])
+        hi = np.concatenate([[0, 1, EMPTY, EMPTY, EMPTY - 1, EMPTY, EMPTY, 0],
+                             np.full(23, EMPTY), first + 3000])
+
+        def premise(st, lo, hi, budget, mask):
+            assert {0, tcore.MAX_VALID} <= set(_stored(st)[0][[0, -1]].tolist())
+            assert {0, EMPTY - 1, EMPTY} <= set(lo.tolist()) & set(hi.tolist())
+            assert fits(st, lo, hi, budget, mask)
+
+    elif case == "all_overlap":  # one wide range, then narrow ranges inside it
+        a, z = _bucket_range(st, 20)[0], mk[300]
+        narrow = np.sort(rng.integers(a, z, 600))
+        width = (z - a) // 280 // 2  # about half a bucket's key range
+        lo = np.concatenate([[a], narrow])
+        hi = np.concatenate([[z], np.minimum(narrow + rng.integers(1, width, 600), z)])
+
+        def premise(st, lo, hi, budget, mask):
+            assert (lo[1:] >= lo[0]).all() and (hi[1:] <= hi[0]).all()
+            c = in_range(st, lo, hi)
+            assert c[0] > 256 and (c[1:] > 0).sum() > 200 and fits(st, lo, hi, budget, mask)
+
+    elif case == "odd_budget":  # a budget that is no multiple of 32, and truncates
+        lo = np.sort(rng.integers(0, 1 << 26, 300))
+        hi = lo + rng.integers(1, 1 << 20, 300)
+        budget = ODD_BUDGET
+
+        def premise(st, lo, hi, budget, mask):
+            assert budget % 32 and in_range(st, lo, hi).sum() > budget
+
+    elif case == "empty_state":  # every key deleted
+        st, _ = _empty_buckets(st, range(nb), device)
+        lo = np.sort(np.concatenate([rng.integers(0, 1 << 26, 200), mk[::5], [0]]))
+        hi = lo + rng.integers(-10, 1 << 20, len(lo))
+
+        def premise(st, lo, hi, budget, mask):
+            assert int(st.num_nodes.sum()) == 0 and not in_range(st, lo, hi).any()
+
+    elif case in ("nb_1", "nb_1023", "nb_1025"):
+        # the searches' fixed step counts: nb fences for the count kernel
+        # (1, 2^10 - 1, 2^10 + 1) and nb + 1 pref entries for the gather
+        # (2, 2^10, 2^10 + 2); bounds on, below and above every fence
+        b = np.unique(np.concatenate([[0, 1, 2, nb - 3, nb - 2, nb - 1], np.arange(0, nb, 7)]))
+        b = b[(b >= 0) & (b < nb)]
+        nxt = mk[np.minimum(b + 1, nb - 1)]
+        live = _stored(st)[0].astype(np.int64)
+        one = live[:: max(1, len(live) // 200)]  # ranges of one stored key each
+        lo = np.concatenate([mk[b], mk[b] - 1, mk[b] + 1, inside(b[::3], 1), one, [0, EMPTY - 1]])
+        hi = np.concatenate([nxt + 1, mk[b] + 1, nxt, inside(b[::3], 1) + 2000, one + 1,
+                             [mk[min(3, nb - 1)], EMPTY]])
+
+        def premise(st, lo, hi, budget, mask):
+            assert nb == {"nb_1": 1, "nb_1023": 1023, "nb_1025": 1025}[case]
+            assert np.isin(mk[[0, nb - 1]], lo).all() and np.isin(mk[[0, nb - 1]] + 1, hi).all()
+            assert (in_range(st, lo, hi) > 0).sum() > len(b) and fits(st, lo, hi, budget, mask)
+
+    else:  # "masked": a mixed batch's sorted keys, 1% of them RANGE ops
+        lo = np.sort(rng.choice(1 << 26, 1000, replace=False))
+        mask = np.zeros(1000, bool)
+        mask[rng.choice(1000, 10, replace=False)] = True
+        hi = np.where(mask, lo + rng.integers(1 << 19, 1 << 20, 1000),
+                      rng.integers(-(1 << 31), 1 << 31, 1000))
+
+        def premise(st, lo, hi, budget, mask):
+            assert mask.sum() == 10 and (in_range(st, lo, hi)[mask] > 0).all()
+            assert (hi[~mask] < lo[~mask]).any() and fits(st, lo, hi, budget, mask)
+
+    lo = np.asarray(lo, np.int64)
+    order = np.argsort(lo, kind="stable")
+    lo, hi = lo[order], np.asarray(hi, np.int64)[order]
+    mask = None if mask is None else mask[order]
+    i32 = np.iinfo(np.int32)
+    return (st, lo.astype(np.int32), np.clip(hi, i32.min, i32.max).astype(np.int32), budget,
+            mask, premise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANGE_CASES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
+def test_range_kernel_edge_cases_on_card(cuda, ns, npb, case):
+    """The count kernel (with and without the case's mask, and on the ops
+    in reverse order: it needs none) and the gather (at the case's budget
+    and at RANGE_K2_SIZE) equal their plain versions byte for byte, one
+    launch each; without a mask, flix_range equals dense_range_scan."""
+    from repro_torch.core.query import live_prefix, range_offsets, range_slot_ranks
+
+    st, lo, hi, budget, mask, premise = range_case(ns, npb, case, cuda)
+    premise(st, lo, hi, budget, mask)
+    lo_t, hi_t = (torch.as_tensor(a, device=cuda) for a in (lo, hi))
+    is_range = torch.as_tensor(np.ones(len(lo), bool) if mask is None else mask, device=cuda)
+    pref = live_prefix(st.node_count)
+    meta = (st.keys, st.node_count, st.node_max, st.mkba, pref, lo_t, hi_t)
+    kw = {} if mask is None else {"is_range": is_range}
+    before = dict(LAUNCHES)
+    got = fr.flix_range_count(*meta, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_range_count"] == before["flix_range_count"] + 1
+    want = fr.flix_range_count_reference(*meta, **kw)
+    _equal(want, got, f"range count ({case})")
+    back = (*meta[:5], lo_t.flip(0).contiguous(), hi_t.flip(0).contiguous())
+    _equal([w.flip(0) for w in want], fr.flix_range_count(*back, **{
+        k: v.flip(0).contiguous() for k, v in kw.items()}), f"range count, reversed ({case})")
+    for mr in (budget, RANGE_K2_SIZE):
+        start, _, total, _ = range_offsets(want[1], is_range, mr)
+        gargs = (range_slot_ranks(want[0], start, total, mr), pref, st.node_count, st.keys,
+                 st.vals)
+        before = dict(LAUNCHES)
+        got = fr.flix_range_scatter(*gargs)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flix_range_scatter"] == before["flix_range_scatter"] + 1
+        _equal(fr.flix_range_gather_reference(*gargs), got, f"range gather ({case} @ {mr})")
+    if mask is None:
+        got = fr.flix_range(st.keys, st.vals, st.mkba, lo_t, hi_t, max_results=budget)
+        want = tcore.dense_range_scan(st, is_range, lo_t, hi_t, max_results=budget)
+        _equal(want, got, f"flix_range ({case})")
 
 
 @pytest.mark.cuda
