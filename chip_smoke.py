@@ -135,7 +135,30 @@ line, and no phase catches its own failure:
                 one MoE layer of 28 or 56 (every layer repeats the same
                 computation on other weights); deepseek's 2 shared experts
                 are not on this path (``moe_dispatch`` has none);
-  9. the kernels line, the card line, and the result line.
+  9. durable   — phase 6's index made durable (``repro_torch.checkpoint``),
+                in a temporary directory deleted at the end: the 2^24-key
+                build's first full snapshot by ``DurableFliX.create``;
+                ``KVPageIndex(durability_dir=..., snapshot_every=4)``
+                recovers it on the card to the build's canonical bytes;
+                phase 6's 12 steps (the last read at the newest version),
+                every update step committed through the WAL, held step for
+                step against a reference-engine index that starts from the
+                recovered state (StepResults, states, expiry planes) and
+                timed beside the same step on an index without durability;
+                a full and a delta snapshot (every 4th commit); the fused
+                path's kernels launched by every commit.  Then a crash: the
+                crash hook raises at ``wal.append.partial`` of the 10th
+                commit and the index is dropped without ``close()``; a new
+                index on the directory truncates the torn tail, replays the
+                WAL through the fused path and lands on the oracle's
+                canonical bytes at the last acknowledged seq; 3 more steps
+                (the crashed one first) equal the oracle's.  Printed: WAL
+                bytes and append + fsync per commit, each commit's overhead,
+                each snapshot's bytes and its canonicalization on the card,
+                crcs and write + fsync, each recovery's chain load, rebuild
+                on the card and replay, beside the card's name and power
+                limit;
+ 10. the kernels line, the card line, and the result line.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -151,6 +174,7 @@ import time
 from pathlib import Path
 from statistics import fmean, median
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -179,6 +203,9 @@ SERVE_PREFILL = 128  # pages of a re-admitted sequence
 SERVE_RANGES = 1 << 10
 SERVE_RANGE_BUDGET = 1 << 18
 SERVE_TTL = 40  # clock units an appended page lives (4 steps)
+DURABLE_SNAPSHOT_EVERY = 4  # phase 9: a snapshot every 4th commit
+DURABLE_CRASH_COMMIT = 10  # phase 9: the commit whose half-written record ends the run
+DURABLE_AFTER = 3  # phase 9: steps served after the recovery, the crashed one first
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
 FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
@@ -1661,50 +1688,41 @@ def check_same_step(label, got, want):
             raise AssertionError(f"{label}: stat {k}: {int(got.stats[k])} != {int(v)}")
 
 
-def phase_serve(dev):
-    """The serving path: KVPageIndex on the card, every step against an
-    index on the reference engine that starts from the same state."""
-    import numpy as np
+class ServeTraffic:
+    """The serving steps of phases 6 and 9 over ``serve_build``'s content,
+    and the host's model of the index that checks each step's answers: the
+    base pages [0, base[s]) of each slot, their slots, the get-or-set
+    pages, and the freed ids waiting for reuse."""
 
-    from repro_torch import core
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.serve import PAGE_BITS, KVPageIndex
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.base = np.full(SERVE_SEQS, SERVE_PAGES)
+        self.slot0 = np.arange(SERVE_SEQS, dtype=np.int64) * SERVE_PAGES
+        self.live = np.ones(SERVE_SEQS, bool)
+        self.freed: list[int] = []
+        self.getset_slot: dict[int, int] = {}
+        self.prev_gs = np.zeros(0, np.int64)
+        self.readmit = np.zeros(0, np.int64)
 
-    torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(SEED + 4)
-    geometry = dict(node_size=32, nodes_per_bucket=16)
-    idx = KVPageIndex(**geometry, snapshot_window=2, device=dev)
-    ref = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"), device=dev)
-    idx.state, build_ms = host_ms(lambda: serve_build(dev))
-    nb, npb, ns = idx.state.geometry
-    cap = npb * ns
-    log(f"phase 6: KVPageIndex on {idx.live_pages()} page keys ({SERVE_SEQS} sequence slots "
-        f"x {SERVE_PAGES} pages), nb={nb} npb={npb} ns={ns}, build {build_ms:.1f} ms")
+    def step(self, i: int) -> dict:
+        """Step ``i``: its ``KVPageIndex.step`` arguments (``kw``) and what
+        :meth:`check` needs.  Every fourth step is read-only; step
+        ``SERVE_STEPS - 1`` leaves out the sequences the newest version
+        re-admitted (phase 6 reads it at the version before)."""
+        from repro_torch import core
+        from repro_torch.serve import PAGE_BITS
 
-    # the host's model of the index: base pages [0, base[s]) of each slot,
-    # their slots, the get-or-set pages, and the freed ids waiting for reuse
-    base = np.full(SERVE_SEQS, SERVE_PAGES)
-    slot0 = np.arange(SERVE_SEQS, dtype=np.int64) * SERVE_PAGES
-    live = np.ones(SERVE_SEQS, bool)
-    freed: list[int] = []
-    getset_slot: dict[int, int] = {}
-    prev_gs = np.zeros(0, np.int64)
-    pins: dict[int, tuple] = {}
-    names = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_apply_rank",
-             "flix_fence_rows")
-    launches = {k: 0 for k in names}
-    step_ms = {"update": [], "read": []}
-    now = 0
-    for i in range(SERVE_STEPS):
+        rng = self.rng
         now = 10 * (i + 1)
-        live_ids = np.nonzero(live)[0]
+        live_ids = np.nonzero(self.live)[0]
         read_only = i % 4 == 3
         kw = dict(range_budget=SERVE_RANGE_BUDGET, now=now)
+        step = dict(i=i, kw=kw, now=now, read_only=read_only)
         frees = np.zeros(0, np.int64)
         if not read_only:
             frees = rng.choice(live_ids, SERVE_FREES, replace=False)
-            readmit = np.array(freed[:SERVE_FREES], np.int64)
-            del freed[:SERVE_FREES]
+            self.readmit = readmit = np.array(self.freed[:SERVE_FREES], np.int64)
+            del self.freed[:SERVE_FREES]
             stay = np.setdiff1d(live_ids, frees)
             appenders = rng.choice(stay, SERVE_APPENDS, replace=False)
             r_pages = np.tile(np.arange(SERVE_PREFILL), len(readmit))
@@ -1718,7 +1736,7 @@ def phase_serve(dev):
                                      np.full(len(r_pages), int(core.NO_EXPIRY))])
             # get-or-sets: half re-ask the previous step's pages (hits while
             # their sequence lives), half ask fresh pages (misses)
-            old = prev_gs[np.isin(prev_gs >> PAGE_BITS, frees, invert=True)]
+            old = self.prev_gs[np.isin(self.prev_gs >> PAGE_BITS, frees, invert=True)]
             old = old[: SERVE_GETSETS // 2]
             fresh_seq = rng.choice(stay, SERVE_GETSETS - len(old), replace=False)
             fresh = (fresh_seq << PAGE_BITS) | (2048 + i)
@@ -1728,38 +1746,109 @@ def phase_serve(dev):
                       getsets=(gs >> PAGE_BITS, gs & ((1 << PAGE_BITS) - 1), gs_slot,
                                np.full(len(gs), now + 80)),
                       free_seqs=frees, max_pages=SERVE_PAGES)
-            # the largest per-bucket insert count, and the fullest bucket it
-            # could make: no bucket may overflow, so no step retries
-            ins_keys = torch.as_tensor(np.concatenate([(a_seq << PAGE_BITS) | a_page, fresh]),
-                                       dtype=torch.int32, device=dev)
-            b = torch.searchsorted(idx.state.mkba, ins_keys)
-            per = torch.bincount(b, minlength=nb)
-            fullest = int((idx.state.node_count.sum(1) + per).max())
-            assert fullest <= cap // 2, fullest
+            step.update(frees=frees, readmit=readmit, r_slot0=r_slot0, gs=gs,
+                        gs_slot=gs_slot,
+                        ins_keys=np.concatenate([(a_seq << PAGE_BITS) | a_page, fresh]))
         # lookups: half hits on base pages of sequences that stay, half
-        # misses on pages never allocated; the pinned read leaves out the
-        # sequences the newest version re-admitted
+        # misses on pages never allocated
         stay = np.setdiff1d(live_ids, frees)
         if i == SERVE_STEPS - 1:
-            stay = np.setdiff1d(stay, readmit)
+            stay = np.setdiff1d(stay, self.readmit)
         h_seq = rng.choice(stay, SERVE_LOOKUPS // 2)
-        h_page = (rng.random(len(h_seq)) * base[h_seq]).astype(np.int64)
+        h_page = (rng.random(len(h_seq)) * self.base[h_seq]).astype(np.int64)
         m_seq = rng.integers(0, SERVE_SEQS, SERVE_LOOKUPS // 2)
         m_page = rng.integers(3000, 1 << PAGE_BITS, SERVE_LOOKUPS // 2)
         kw["lookups"] = (np.concatenate([h_seq, m_seq]), np.concatenate([h_page, m_page]))
         r_seq = rng.choice(stay, SERVE_RANGES, replace=False)
         kw["ranges"] = (r_seq << PAGE_BITS, (r_seq + 1) << PAGE_BITS)
+        step.update(h_seq=h_seq, h_page=h_page)
+        return step
+
+    @staticmethod
+    def fullest(step: dict, state) -> int:
+        """The fullest bucket the update step's inserts could make, which
+        must stay within half a bucket: no bucket may overflow, so no step
+        retries (``restructure_grow`` at this size asks for ~1.8 TB)."""
+        ins = torch.as_tensor(step["ins_keys"], dtype=torch.int32, device=state.device)
+        per = torch.bincount(torch.searchsorted(state.mkba, ins), minlength=state.num_buckets)
+        fullest = int((state.node_count.sum(1) + per).max())
+        assert fullest <= state.bucket_capacity // 2, fullest
+        return fullest
+
+    def check(self, step: dict, got) -> None:
+        """The model's answers for the step (hits find their slot, misses
+        do not, get-or-sets return the stored slot of a page they hit);
+        then the model takes the step's updates."""
+        i = step["i"]
+        slots = got.slots.cpu().numpy().astype(np.int64)
+        n_look = SERVE_LOOKUPS
+        if not (slots[: n_look // 2] == self.slot0[step["h_seq"]] + step["h_page"]).all():
+            raise AssertionError(f"serve step {i}: a lookup hit returned a wrong slot")
+        if not (slots[n_look // 2 : n_look] == -1).all():
+            raise AssertionError(f"serve step {i}: a lookup miss found a slot")
+        if step["read_only"]:
+            return
+        gs, gs_slot, frees, readmit = step["gs"], step["gs_slot"], step["frees"], step["readmit"]
+        want_gs = np.array([self.getset_slot.get(int(k), -1) for k in gs])
+        if not (slots[n_look:] == want_gs).all():
+            raise AssertionError(f"serve step {i}: a get-or-set returned a wrong slot")
+        for k, sl in zip(gs.tolist(), gs_slot.tolist()):
+            self.getset_slot.setdefault(k, sl)
+        self.prev_gs = gs
+        self.live[frees] = False
+        self.base[frees] = 0
+        self.freed.extend(frees.tolist())
+        self.live[readmit] = True
+        self.base[readmit] = SERVE_PREFILL
+        self.slot0[readmit] = step["r_slot0"]
+
+
+SERVE_KERNELS = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_apply_rank",
+                 "flix_fence_rows")
+
+
+def check_update_launches(label, counts):
+    """An update step runs the fused path: the staged stripe kernel, the
+    range gather, the rank count and the fence rows, once a plane (TTL)."""
+    if min(counts[k] for k in SERVE_KERNELS[1:]) < 2:
+        raise AssertionError(f"{label}: kernels not launched: {counts}")
+
+
+def phase_serve(dev):
+    """The serving path: KVPageIndex on the card, every step against an
+    index on the reference engine that starts from the same state."""
+    from repro_torch import core
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import KVPageIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    traffic = ServeTraffic(SEED + 4)
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    idx = KVPageIndex(**geometry, snapshot_window=2, device=dev)
+    ref = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"), device=dev)
+    idx.state, build_ms = host_ms(lambda: serve_build(dev))
+    nb, npb, ns = idx.state.geometry
+    log(f"phase 6: KVPageIndex on {idx.live_pages()} page keys ({SERVE_SEQS} sequence slots "
+        f"x {SERVE_PAGES} pages), nb={nb} npb={npb} ns={ns}, build {build_ms:.1f} ms")
+
+    pins: dict[int, tuple] = {}
+    launches = {k: 0 for k in SERVE_KERNELS}
+    step_ms = {"update": [], "read": []}
+    for i in range(SERVE_STEPS):
+        step = traffic.step(i)
+        kw, read_only = step["kw"], step["read_only"]
+        fullest = None if read_only else ServeTraffic.fullest(step, idx.state)
         ref_kw = dict(kw)
         ref.state = idx.state
         if i == SERVE_STEPS - 1:  # a read at the version before the newest
-            kw["as_of"] = idx.version - 1
+            kw = dict(kw, as_of=idx.version - 1)
             del kw["now"]
             ref.state, ref_kw["now"] = pins[kw["as_of"]]
 
         torch.cuda.synchronize()
         reset_launches()
         got, ms = host_ms(lambda: idx.step(**kw))
-        counts = {k: LAUNCHES[k] for k in names}
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
         want = ref.step(**ref_kw)
         check_same_step(f"serve step {i}", got, want)
         kind = "read" if read_only else "update"
@@ -1771,36 +1860,14 @@ def phase_serve(dev):
             check_same_state(f"serve step {i}", idx.state, ref.state)
             if not torch.equal(idx.state.exps, ref.state.exps):
                 raise AssertionError(f"serve step {i}: the expiry plane differs")
-            if min(counts[k] for k in names[1:]) < 2:  # the two planes of TTL
-                raise AssertionError(f"serve step {i}: kernels not launched: {counts}")
+            check_update_launches(f"serve step {i}", counts)
             assert int(got.stats["restructure_retries"]) == 0, got.stats
-            pins[idx.version] = (idx.state, now)
+            pins[idx.version] = (idx.state, step["now"])
             pins.pop(idx.version - 2, None)
         for k, c in counts.items():
             launches[k] += c
         ref.state = None
-
-        # the host model's answers: hits find their slot, misses do not,
-        # get-or-sets return the stored slot of a page they hit
-        slots = got.slots.cpu().numpy().astype(np.int64)
-        n_look = SERVE_LOOKUPS
-        if not (slots[: n_look // 2] == slot0[h_seq] + h_page).all():
-            raise AssertionError(f"serve step {i}: a lookup hit returned a wrong slot")
-        if not (slots[n_look // 2 : n_look] == -1).all():
-            raise AssertionError(f"serve step {i}: a lookup miss found a slot")
-        if not read_only:
-            want_gs = np.array([getset_slot.get(int(k), -1) for k in gs])
-            if not (slots[n_look:] == want_gs).all():
-                raise AssertionError(f"serve step {i}: a get-or-set returned a wrong slot")
-            for k, sl in zip(gs.tolist(), gs_slot.tolist()):
-                getset_slot.setdefault(k, sl)
-            prev_gs = gs
-            live[frees] = False
-            base[frees] = 0
-            freed.extend(frees.tolist())
-            live[readmit] = True
-            base[readmit] = SERVE_PREFILL
-            slot0[readmit] = r_slot0
+        traffic.check(step, got)
         trunc = int(got.stats["range_truncated"])
         log(f"  step {i} ({kind}{', as_of' if 'as_of' in kw else ''}, now={ref_kw['now']}): "
             f"{ms:.3f} ms; launches {counts}; expired {int(got.stats.get('expired', 0))}, "
@@ -1815,6 +1882,203 @@ def phase_serve(dev):
         f"(min {min(step_ms['update']):.3f}, max {max(step_ms['update']):.3f}), read-only "
         f"median {median(step_ms['read']):.3f} ms; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+class Crash(BaseException):
+    """A simulated process death (nothing on the path may catch it)."""
+
+
+class CrashAt:
+    """A durable layer's ``crash_hook``: raises :class:`Crash` at the
+    ``count``-th occurrence of ``event``."""
+
+    def __init__(self, event: str, count: int):
+        self.event, self.count, self.seen = event, count, 0
+
+    def __call__(self, event: str) -> None:
+        if event == self.event:
+            self.seen += 1
+            if self.seen == self.count:
+                raise Crash(f"{event}#{self.count}")
+
+
+def snapshot_line(label, t, smi) -> str:
+    return (f"  {label}: {t['kind']} snapshot, payload {t['payload_bytes']} B + manifest "
+            f"{t['manifest_bytes']} B; canonicalize on the card {t['canonicalize_s']:.3f} s, "
+            f"framing + crcs + manifest {t['crc_s']:.3f} s, write + fsync "
+            f"{t['write_fsync_s']:.3f} s ({smi})")
+
+
+def recovery_line(label, dur, ms, smi) -> str:
+    t = dur.timings
+    return (f"  {label}: recovered seq {dur.seq} in {ms / 1e3:.3f} s: chain load "
+            f"{t['chain_load_s']:.3f} s, rebuild on the card {t['rebuild_s']:.3f} s, replay of "
+            f"{dur.replayed} records {t['replay_s']:.3f} s ({smi})")
+
+
+def phase_durable(dev, smi):
+    """Durability at phase 6's size, in a temporary directory deleted at
+    the end: create a durable history from the build; recover it through
+    ``KVPageIndex(durability_dir=...)``; phase 6's steps, WAL-ahead, held
+    against a reference-engine index that starts from the recovered state;
+    a crash at the 10th commit's half-written record; recovery onto the
+    oracle's bytes; the remaining steps."""
+    import tempfile
+
+    from repro_torch import core
+    from repro_torch.checkpoint import (
+        DurableFliX,
+        LocalEngine,
+        WALCorruptionError,
+        canonical_state_bytes,
+        replay,
+    )
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import KVPageIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    durable_kw = dict(**geometry, snapshot_every=DURABLE_SNAPSHOT_EVERY, device=dev)
+    launches = {k: 0 for k in SERVE_KERNELS}
+    with tempfile.TemporaryDirectory(prefix="flix-durable-") as tmp:
+        d = Path(tmp) / "index"
+        built = serve_build(dev)
+        dur, create_ms = host_ms(
+            lambda: DurableFliX.create(d, built, engine=LocalEngine(**geometry, device=dev)))
+        dur.close()
+        want = (d / "snap_000000000000" / "payload.bin").read_bytes()  # canonical bytes
+        log(f"phase 9: durable history of {len(want)} canonical bytes "
+            f"({(len(want) - 16) // 12} live keys, nb={built.num_buckets}) created in "
+            f"{create_ms / 1e3:.3f} s")
+        log(snapshot_line("create", dur.last_timings, smi))
+        del built, dur
+
+        hook = CrashAt("wal.append.partial", DURABLE_CRASH_COMMIT)
+        idx, open_ms = host_ms(lambda: KVPageIndex(**durable_kw, durability_dir=d,
+                                                   crash_hook=hook))
+        log(recovery_line("KVPageIndex(durability_dir=...)", idx._durable, open_ms, smi))
+        got_bytes, canon_ms = host_ms(lambda: canonical_state_bytes(idx.state))
+        if got_bytes != want:
+            raise AssertionError("phase 9: the recovered index's canonical bytes differ")
+        log(f"  recovered geometry {tuple(idx.state.geometry)}; canonical bytes equal the "
+            f"build's ({canon_ms:.0f} ms)")
+
+        ref = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"), device=dev)
+        plain = KVPageIndex(**geometry, device=dev)
+        ref.state = idx.state
+        traffic = ServeTraffic(SEED + 4)  # phase 6's steps
+        commits, crash_step, i = [], None, 0
+        while crash_step is None:
+            step = traffic.step(i)
+            kw, read_only = step["kw"], step["read_only"]
+            if not read_only:
+                ServeTraffic.fullest(step, idx.state)
+            pre = idx.state
+            torch.cuda.synchronize()
+            reset_launches()
+            try:
+                got, ms = host_ms(lambda: idx.step(**kw))
+            except Crash:
+                crash_step = step
+                break
+            counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+            plain.state = pre
+            _, plain_ms = host_ms(lambda: plain.step(**kw))
+            plain.state = None
+            want_step = ref.step(**kw)
+            check_same_step(f"durable step {i}", got, want_step)
+            traffic.check(step, got)
+            for k, c in counts.items():
+                launches[k] += c
+            line = f"  step {i} ({'read' if read_only else 'update'}): {ms:.3f} ms"
+            if read_only:
+                if any(counts.values()) or idx.durable_seq != len(commits):
+                    raise AssertionError(f"durable step {i}: a read-only step logged or "
+                                         f"launched {counts}")
+                log(line + f", without durability {plain_ms:.3f} ms")
+            else:
+                check_same_state(f"durable step {i}", idx.state, ref.state)
+                if not torch.equal(idx.state.exps, ref.state.exps):
+                    raise AssertionError(f"durable step {i}: the expiry plane differs")
+                check_update_launches(f"durable step {i}", counts)
+                assert int(got.stats["restructure_retries"]) == 0, got.stats
+                seq = idx.durable_seq
+                assert seq == len(commits) + 1, seq
+                wal = idx._durable.last_append
+                commits.append(dict(ms=ms, plain_ms=plain_ms, **wal))
+                log(line + f", without durability {plain_ms:.3f} ms (overhead "
+                    f"{ms - plain_ms:.3f} ms); durable seq {seq}, WAL record {wal['bytes']} B, "
+                    f"append + fsync {wal['append_fsync_s'] * 1e3:.3f} ms; launches {counts}")
+                if seq % DURABLE_SNAPSHOT_EVERY == 0:
+                    t = idx._durable.last_timings
+                    if not (d / f"snap_{seq:012d}").is_dir():
+                        raise AssertionError(f"durable step {i}: no snapshot at seq {seq}")
+                    log(snapshot_line(f"seq {seq}", t, smi))
+            i += 1
+        if len(commits) != DURABLE_CRASH_COMMIT - 1 or i < SERVE_STEPS:
+            raise AssertionError(f"phase 9: crashed after {len(commits)} commits, step {i}")
+        kinds = {json.loads((d / f"snap_{s:012d}" / "manifest.json").read_text())["kind"]
+                 for s in range(0, len(commits) + 1, DURABLE_SNAPSHOT_EVERY)}
+        if kinds != {"full", "delta"}:
+            raise AssertionError(f"phase 9: snapshot kinds {kinds}")
+        acked = idx.durable_seq
+        idx = None  # dropped without close(), as a dead process leaves it
+        try:
+            replay(d, truncate_torn=False)
+            raise AssertionError("phase 9: no torn WAL tail after the crash")
+        except WALCorruptionError as e:
+            log(f"  crash at commit {DURABLE_CRASH_COMMIT} (step {i}), "
+                f"wal.append.partial: torn tail ({e})")
+        want_bytes, canon_ms = host_ms(lambda: canonical_state_bytes(ref.state))
+
+        reset_launches()
+        idx, open_ms = host_ms(lambda: KVPageIndex(**durable_kw, durability_dir=d))
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+        log(recovery_line("after the crash", idx._durable, open_ms, smi))
+        if idx.durable_seq != acked or idx._durable.replayed < 1:
+            raise AssertionError(f"phase 9: recovered seq {idx.durable_seq}, acked {acked}, "
+                                 f"replayed {idx._durable.replayed}")
+        check_update_launches("phase 9 replay", counts)
+        records = replay(d, truncate_torn=False)  # the torn tail is gone
+        if records[-1][0] != acked:
+            raise AssertionError(f"phase 9: the WAL ends at seq {records[-1][0]}")
+        if canonical_state_bytes(idx.state) != want_bytes:
+            raise AssertionError("phase 9: the recovered bytes differ from the oracle's")
+        for k, c in counts.items():
+            launches[k] += c
+        log(f"  replay launches {counts}; canonical bytes at seq {acked} equal the oracle's "
+            f"({canon_ms:.0f} ms)")
+
+        step = crash_step
+        for i in range(crash_step["i"], crash_step["i"] + DURABLE_AFTER):
+            if i > crash_step["i"]:
+                step = traffic.step(i)
+            if not step["read_only"]:
+                ServeTraffic.fullest(step, idx.state)
+            reset_launches()
+            got, ms = host_ms(lambda: idx.step(**step["kw"]))
+            counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+            check_same_step(f"durable step {i} after recovery", got, ref.step(**step["kw"]))
+            traffic.check(step, got)
+            if not step["read_only"]:
+                check_update_launches(f"durable step {i} after recovery", counts)
+            if canonical_state_bytes(idx.state) != canonical_state_bytes(ref.state):
+                raise AssertionError(f"durable step {i} after recovery: bytes differ")
+            for k, c in counts.items():
+                launches[k] += c
+            log(f"  step {i} after recovery: {ms:.3f} ms, durable seq {idx.durable_seq}, "
+                f"canonical bytes equal the oracle's; launches {counts}")
+            if idx.durable_seq % DURABLE_SNAPSHOT_EVERY == 0:
+                log(snapshot_line(f"seq {idx.durable_seq}", idx._durable.last_timings, smi))
+        idx.close()
+        overhead = [c["ms"] - c["plain_ms"] for c in commits]
+        log(f"  per update commit: WAL record median {median(c['bytes'] for c in commits):.0f} B, "
+            f"append + fsync median {median(c['append_fsync_s'] for c in commits) * 1e3:.3f} ms, "
+            f"step median {median(c['ms'] for c in commits):.3f} ms against "
+            f"{median(c['plain_ms'] for c in commits):.3f} ms without durability (overhead "
+            f"median {median(overhead):.3f} ms); launches {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
     return launches
 
 
@@ -2363,18 +2627,20 @@ def main() -> int:
         ("3f", lambda: phase_gemm(dev, check)),
         ("4", lambda: merge(measured, phase_main(dev))),
         ("5", lambda: merge(measured, phase_fig9(dev, check))),
-        ("6", lambda: serve_launches.update(phase_serve(dev))),
+        ("6", lambda: serve_launches.append(phase_serve(dev))),
         ("7", lambda: merge(measured, phase_range(dev, check))),
         ("8", lambda: merge(measured, phase_moe(dev, check))),
+        ("9", lambda: serve_launches.append(phase_durable(dev, smi))),
     ]
-    measured, serve_launches = {}, {}
+    measured, serve_launches = {}, []
     for label, run in phases:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         log(f"phase {label} took {time.perf_counter() - t0:.1f} s")
-    for k, c in serve_launches.items():
-        measured[k]["launches"] += c
+    for launches in serve_launches:
+        for k, c in launches.items():
+            measured[k]["launches"] += c
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

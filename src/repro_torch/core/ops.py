@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.batch import bucket_slices
@@ -76,6 +77,31 @@ class OpBatch:
     @property
     def size(self) -> int:
         return self.key.shape[0]
+
+    def to_host(self):
+        """The batch as host int32 numpy arrays ``(tag, key, val, exp)`` —
+        the form the write-ahead log frames and the dirty-bucket tracker
+        reads — by one device-to-host copy.  ``exp`` is None for TTL-free
+        batches."""
+        cols = [self.tag, self.key, self.val]
+        if self.exp is not None:
+            cols.append(self.exp)
+        host = torch.stack([c.to(torch.int32) for c in cols]).cpu().numpy()
+        return host[0], host[1], host[2], host[3] if self.exp is not None else None
+
+    @classmethod
+    def from_host(cls, tag, key, val, exp=None, *, device=None) -> "OpBatch":
+        """A batch from host arrays *without re-sorting* (WAL records hold
+        sorted batches, and replay must apply exactly the logged bytes), on
+        ``device``: the card unless the caller names another."""
+        dev = resolve_device(device)
+
+        def col(a):
+            return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+        return cls(
+            tag=col(tag), key=col(key), val=col(val), exp=None if exp is None else col(exp)
+        )
 
 
 def make_ops(

@@ -22,9 +22,15 @@ Two time features ride the same batch model:
   ``step(as_of=v)`` serves reads against that version at its own clock
   until the window slides past it (:class:`SnapshotGone`).
 
-This port serves one device.  The reference's durability (``durability_dir``),
-tiered residency (``device_budget``) and sharding (``shards``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``durability_dir`` switches on the persistence layer of ``checkpoint``:
+every update step is logged (fsynced) before it runs and snapshotted every
+``snapshot_every`` steps, and an index built on a directory that already
+holds a durable history recovers it instead of starting empty.  Pure-read
+steps never touch the log.
+
+This port serves one device.  The reference's tiered residency
+(``device_budget``) and sharding (``shards``) raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -105,11 +111,19 @@ class KVPageIndex:
     plain reference engine on the CPU) and its ``pipeline`` the fused
     path's stripe kernel.  Read-only steps always run the reference engine,
     allocation and get-or-set steps go through ``apply_ops_safe``
-    (restructure and retry on overflow), as in the reference.
+    (restructure and retry on overflow), as in the reference; with
+    durability every update step goes through the durable layer, which
+    restructures and retries itself.
 
     ``snapshot_window`` > 0 retains that many recent committed versions for
     ``step(as_of=...)``.  ``device`` is where the index lives: the card
     unless the caller names another (``"cpu"``).
+
+    ``durability_dir`` logs every update step before it runs (fsynced, or
+    buffered with ``wal_fsync=False``, which removes the durability
+    boundary and exists for the negative crash tests), snapshots every
+    ``snapshot_every`` steps, and recovers a history already in the
+    directory.  ``crash_hook`` receives the durable layer's named events.
     """
 
     def __init__(
@@ -122,16 +136,14 @@ class KVPageIndex:
         device=None,
         shards: int = 0,
         durability_dir=None,
+        snapshot_every: int = 64,
+        wal_fsync: bool = True,
+        crash_hook=None,
         device_budget: int | None = None,
     ):
         if shards:
             raise NotImplementedError(
                 "shards: the sharded engine is not ported yet (ROADMAP Queue 1 item 11)"
-            )
-        if durability_dir is not None:
-            raise NotImplementedError(
-                "durability_dir: the WAL and snapshots are not ported yet "
-                "(ROADMAP Queue 1 item 8)"
             )
         if device_budget is not None:
             raise NotImplementedError(
@@ -143,6 +155,8 @@ class KVPageIndex:
         self.snapshot_window = int(snapshot_window)
         self._version = 0
         self._pins: dict[int, tuple[object, int | None]] = {}
+        self._durable = None
+        self._closed = False
         # seed with one sentinel key (outside the (seq, page) space) so the
         # structure is never empty
         seed = torch.tensor([MAX_VALID], dtype=torch.int32)
@@ -153,6 +167,26 @@ class KVPageIndex:
             nodes_per_bucket=nodes_per_bucket,
             device=self.device,
         )
+        if durability_dir is not None:
+            from repro_torch.checkpoint import DurableFliX, LocalEngine
+
+            engine = LocalEngine(
+                config=self.config,
+                node_size=node_size,
+                nodes_per_bucket=nodes_per_bucket,
+                device=self.device,
+            )
+            kw = dict(
+                engine=engine,
+                snapshot_every=snapshot_every,
+                fsync=wal_fsync,
+                crash_hook=crash_hook,
+            )
+            if DurableFliX.exists(durability_dir):
+                self._durable = DurableFliX.open(durability_dir, **kw)
+            else:
+                self._durable = DurableFliX.create(durability_dir, self.state, **kw)
+            self.state = self._durable.handle
         if self.snapshot_window:
             self._pins[0] = (self.state, None)
 
@@ -170,6 +204,7 @@ class KVPageIndex:
         ranges=None,
         max_pages: int = 256,
         range_budget: int = 256,
+        meta=None,
         now: int | None = None,
         as_of: int | None = None,
     ) -> StepResult:
@@ -192,6 +227,10 @@ class KVPageIndex:
         nothing.  ``as_of`` runs a read-only step against a retained
         committed version at that version's own clock (``now`` must be
         None); a version that left the window raises :class:`SnapshotGone`.
+
+        ``meta`` (JSON-serializable, e.g. a gateway's idempotency keys) is
+        logged inside the update batch's WAL record when durability is on
+        and ignored otherwise; a pure-read step logs nothing.
 
         ``allocs``, ``getsets`` and ``free_seqs`` must not overlap in key
         space within one step (``apply_ops``' one-update-op-per-key
@@ -289,6 +328,11 @@ class KVPageIndex:
             cfg = self.config.replace(impl="reference", max_results=range_budget)
             state = self.state if pinned is None else pinned
             _, results, stats = apply_ops(state, ops, config=cfg, now=now)
+        elif self._durable is not None:
+            # WAL-ahead, with the engine's own restructure and retry
+            cfg = self.config.replace(max_results=range_budget)
+            results, stats = self._durable.apply(ops, config=cfg, meta=meta, now=now)
+            self._commit(self._durable.handle, now)
         elif n_alloc == 0 and n_getset == 0:
             # only inserts can overflow: free steps skip apply_ops_safe
             cfg = self.config.replace(max_results=range_budget)
@@ -396,3 +440,46 @@ class KVPageIndex:
     def retained_versions(self) -> list[int]:
         """Versions currently answerable via ``step(as_of=...)``."""
         return sorted(self._pins)
+
+    # ---- durability / health -------------------------------------------
+    @property
+    def durable_seq(self) -> int | None:
+        """Last durably committed batch seq (None with durability off)."""
+        return self._durable.seq if self._durable is not None else None
+
+    @property
+    def healthy(self) -> bool:
+        """True while the update path is trustworthy: False once the
+        durable layer is poisoned (live and durable state diverged after a
+        failed WAL rollback) or the index is closed.  Reads of the live
+        state stay valid either way."""
+        if self._closed:
+            return False
+        return self._durable is None or self._durable.healthy
+
+    def dedup_seed(self) -> list[tuple[int, object]]:
+        """The durable ``(seq, meta)`` trail of recent update commits
+        (empty with durability off) — what a gateway reseeds its dedup
+        window from after crash recovery."""
+        return self._durable.meta_trail() if self._durable is not None else []
+
+    def snapshot(self):
+        """Force a snapshot now (durability on); returns its directory.
+
+        Idempotent — a snapshot at the current seq already on disk is
+        revalidated, not rewritten — and returns None on an unhealthy
+        instance instead of raising from a teardown path."""
+        if self._durable is None:
+            raise RuntimeError("durability is off (no durability_dir)")
+        if not self._durable.healthy:
+            return None
+        return self._durable.snapshot()
+
+    def close(self):
+        """Flush and close the WAL (no-op with durability off).  Idempotent
+        and safe on a poisoned durable layer."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._durable is not None:
+            self._durable.close()

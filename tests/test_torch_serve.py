@@ -1,7 +1,10 @@
 """The serving path: the port's ``KVPageIndex`` against the JAX reference's,
 step by step on the CPU (exact: slots, RANGE output and stats of every
 step, and the index state), plus the snapshot-read properties, the
-argument checks and an allocation overflow with its retry."""
+argument checks, an allocation overflow with its retry, and the durable
+index (``durability_dir``): its steps, its files and its recovery."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -10,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 from repro.serve.kv_index import KVPageIndex as JIndex  # noqa: E402
 from repro.serve.kv_index import SnapshotGone as JSnapshotGone  # noqa: E402
+from repro.checkpoint import canonical_state_bytes as j_canonical  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
+from repro_torch.checkpoint import canonical_state_bytes  # noqa: E402
 from repro_torch.serve import PAGE_BITS, KVPageIndex, SnapshotGone, StepResult  # noqa: E402
 from repro_torch.serve.kv_index import _key, _next_pow2  # noqa: E402
 from test_torch_common import assert_same, assert_same_state  # noqa: E402
@@ -181,8 +186,7 @@ def test_step_argument_checks():
     assert empty.slots.numel() == 0 and empty.range_out is None and empty.stats == {}
     with pytest.raises(TypeError):
         slots, range_out, stats = idx.step(lookups=([1], [0]))
-    for kw, item in ((dict(shards=2), "item 11"), (dict(durability_dir="d"), "item 8"),
-                     (dict(device_budget=1 << 20), "item 10")):
+    for kw, item in ((dict(shards=2), "item 11"), (dict(device_budget=1 << 20), "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             KVPageIndex(device="cpu", **kw)
     k = _key(torch.tensor([1, 2]), torch.tensor([3, 4]))
@@ -213,3 +217,82 @@ def test_allocation_overflow_retries_like_the_reference():
     pages, slots, count = t.pages_of(0, max_pages=64)
     assert int(count) == 40 and pages[:40].tolist() == list(range(40))
     assert slots[:40].tolist() == list(range(7, 47))
+
+
+def _files(d) -> dict[str, bytes]:
+    d = Path(d)
+    return {str(p.relative_to(d)): p.read_bytes() for p in sorted(d.rglob("*")) if p.is_file()}
+
+
+def test_durable_serving_day_matches_the_reference(tmp_path):
+    """The 50-step day through both packages' ``KVPageIndex`` with
+    ``durability_dir`` and ``snapshot_every=4``, some steps carrying meta:
+    equal StepResults, durable seqs and dedup seeds, and byte-identical
+    directories (snapshots and WAL).  Then each package reopens both
+    directories onto the same canonical bytes, seq and seed, and serves
+    one more step alike."""
+    day, _ = serve_day()
+    geo = dict(node_size=32, nodes_per_bucket=8, snapshot_every=4)
+    jd, td = tmp_path / "jax", tmp_path / "port"
+    j = JIndex(**geo, durability_dir=jd)
+    t = KVPageIndex(**geo, durability_dir=td, device="cpu")
+    for n, kw in enumerate(day):
+        meta = {"step": n} if n % 3 == 0 else None
+        assert_same_step(j.step(**kw, meta=meta), t.step(**kw, meta=meta))
+        assert t.durable_seq == j.durable_seq == n + 1 == t.version
+    assert t.dedup_seed() == j.dedup_seed() and len(t.dedup_seed()) == 17
+    assert _files(td) == _files(jd)
+    assert t.snapshot().name == j.snapshot().name  # forced, at a fresh seq
+    assert _files(td) == _files(jd)
+    want = j_canonical(j.state)
+    assert canonical_state_bytes(t.state) == want
+    for idx in (t, j):
+        idx.close()
+        idx.close()
+        assert not idx.healthy
+    extra = dict(allocs=([900], [0], [77]), lookups=([900, 0], [0, 0]))
+    for d in (jd, td):
+        t2 = KVPageIndex(**geo, durability_dir=d, device="cpu")
+        j2 = JIndex(**geo, durability_dir=d)
+        assert canonical_state_bytes(t2.state) == j_canonical(j2.state) == want
+        assert t2.durable_seq == j2.durable_seq == len(day)
+        assert t2.dedup_seed() == j2.dedup_seed() == j.dedup_seed()
+        assert t2.version == 0 and t2.healthy
+        assert_same_step(j2.step(**extra), t2.step(**extra))
+        j2.close()
+        t2.close()
+
+
+def test_durability_off_and_poisoned_like_the_reference(tmp_path):
+    """Without ``durability_dir``: no seq, an empty seed, ``snapshot``
+    refused, ``close`` a no-op.  A poisoned durable layer (the engine and
+    then the WAL rollback fail): unhealthy, ``snapshot`` returns None, the
+    update path refuses, ``close`` does not raise — in both packages."""
+    for idx in (JIndex(), KVPageIndex(device="cpu")):
+        assert idx.durable_seq is None and idx.dedup_seed() == [] and idx.healthy
+        with pytest.raises(RuntimeError, match="durability is off"):
+            idx.snapshot()
+        idx.close()
+        assert not idx.healthy
+
+    def boom(*a, **k):
+        raise RuntimeError("engine OOM")
+
+    def no_rollback(offset):
+        raise OSError("disk gone")
+
+    step = dict(allocs=([1, 2], [0, 0], [5, 6]))
+    for idx in (JIndex(durability_dir=tmp_path / "j"),
+                KVPageIndex(durability_dir=tmp_path / "t", device="cpu")):
+        idx.step(**step)
+        idx._durable.engine.apply = boom
+        idx._durable._wal.truncate_to = no_rollback
+        with pytest.raises(RuntimeError, match="engine OOM"):
+            idx.step(allocs=([3], [0], [7]))
+        assert not idx.healthy and idx.durable_seq == 1
+        assert idx.snapshot() is None
+        with pytest.raises(RuntimeError, match="diverged"):
+            idx.step(allocs=([4], [0], [8]))
+        assert idx.lookup([1], [0]).tolist() == [5]  # reads stay valid
+        idx.close()
+    assert _files(tmp_path / "t") == _files(tmp_path / "j")
