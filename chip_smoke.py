@@ -76,7 +76,9 @@ line, and no phase catches its own failure:
                 (flix_apply_rank) and by no torch node_rank on the card, and
                 must not retry; both runs are held against each other and
                 against the port's plain-torch reference engine on the card,
-                and the final state passes the invariant checker.  Each batch
+                and the final state passes the invariant checker;
+                ``core.merge_underfull`` then repacks it once, timed, with
+                I1-I5 holding and every bucket's live pairs kept.  Each batch
                 times the range gather and the count kernel at the fused
                 call site by CUDA events, as a call and queued behind a
                 sleep of the card, each beside its bound, an empty kernel,
@@ -158,7 +160,34 @@ line, and no phase catches its own failure:
                 crcs and write + fsync, each recovery's chain load, rebuild
                 on the card and replay, beside the card's name and power
                 limit;
- 10. the kernels line, the card line, and the result line.
+ 10. gateway   — the multi-tenant exactly-once gateway
+                (``repro_torch.serve.Gateway``) over phase 6's content made
+                durable in a temporary directory (deleted at the end), opened
+                by ``KVPageIndex(durability_dir=..., snapshot_window=2)``:
+                pumps of at most 2^14 ops, a queue of 2^16, a dedup window
+                of 2^20 keys, frees of 256 pages, a 2^18 range budget, 8
+                tenants (one hot, weight 3).  64 clients (``GatewayTraffic``)
+                offer 1.5x what a pump drains for 24 ticks: allocs of pages
+                below 256, lookups that hit and miss, page enumerations,
+                frees and lookups pinned to the previous version; the hot
+                tenant bursts, 4 clients send every request 4 times, 4 set
+                deadlines 0-2 ticks ahead, every retryable rejection is sent
+                again with its key.  The 12th update pump crashes at
+                ``gateway.step.done`` (committed, durable, unacknowledged);
+                a new index and gateway recover the directory and every
+                client sends all its requests again from tick 0.  Every read
+                equals a host model (pinned ones at their version), no key
+                commits twice over the WAL's dedup trail and the later log,
+                the crashed pump's keys resolve as duplicates, the recovered
+                and final live pairs equal the model's, no step retries, and
+                every update pump launches the staged stripe kernel and the
+                fence rows (with page enumerations, the rank count and the
+                gather too).  Printed: each pump's requests and ops and its
+                host ms split into formation, ``index.step`` (synced) and
+                resolution, its WAL record bytes and append + fsync; per
+                run goodput, shed counts by code, queued latency p50 / p99
+                in ticks; the recovery's split; peak device memory;
+ 11. the kernels line, the card line, and the result line.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -206,6 +235,17 @@ SERVE_TTL = 40  # clock units an appended page lives (4 steps)
 DURABLE_SNAPSHOT_EVERY = 4  # phase 9: a snapshot every 4th commit
 DURABLE_CRASH_COMMIT = 10  # phase 9: the commit whose half-written record ends the run
 DURABLE_AFTER = 3  # phase 9: steps served after the recovery, the crashed one first
+GATEWAY_CLIENTS = 64  # phase 10: each owns SERVE_SEQS / 64 sequence ids
+GATEWAY_TENANTS = 8  # client c belongs to tenant c % 8; tenant 0 is the hot one
+GATEWAY_BATCH_OPS = 1 << 14  # ops one pump commits at most (a free costs SERVE_PAGES)
+GATEWAY_QUEUE_OPS = 1 << 16
+GATEWAY_DEDUP = 1 << 20  # committed keys remembered: above every key of the run
+GATEWAY_RANGE_BUDGET = 1 << 18
+GATEWAY_LOAD = 1.5  # offered ops a tick over what one pump drains
+GATEWAY_TICKS = 24
+GATEWAY_DRAIN_TICKS = 40  # ticks after the last fresh requests, retries only
+GATEWAY_MAX_RETRIES = 30  # sends of one key before its client gives up
+GATEWAY_CRASH_PUMP = 12  # the update pump whose gateway.step.done ends the first run
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
 FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
@@ -997,6 +1037,7 @@ def phase_main(dev):
         f"{fmean(f_torch_ms):.4f} ms")
     if e1 or e2 or e3 or e4 or e5:
         raise AssertionError("a kernel disagrees with its plain version at main-path shapes")
+    check_merge_underfull(state)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {
         "flix_apply": dict(launches=launches["flix_apply"], ms=fmean(k_ms["off"]),
@@ -1016,6 +1057,24 @@ def phase_main(dev):
                                 call_ms=fmean(f_call_ms), plain_ms=fplain_ms,
                                 bound_ms=fmean(fbounds), err=e4),
     }
+
+
+def check_merge_underfull(state) -> None:
+    """``core.merge_underfull`` once on phase 4's final state: I1-I5 hold
+    after it, and every bucket keeps its live pairs."""
+    from repro_torch import core
+    from repro_torch.core.state import flatten_bucket_sorted
+
+    merged, ms = host_ms(lambda: core.merge_underfull(state))
+    core.check_invariants(merged)
+    bk, bv = flatten_bucket_sorted(state)
+    mk, mv = flatten_bucket_sorted(merged)
+    live = bk != core.EMPTY
+    if not (torch.equal(bk, mk) and torch.equal(bv[live], mv[live])):
+        raise AssertionError("merge_underfull changed a bucket's live pairs")
+    log(f"  merge_underfull: {ms:.3f} ms on {int(state.live_keys())} keys; nodes "
+        f"{int(state.total_nodes())} -> {int(merged.total_nodes())}; I1-I5 hold, every "
+        f"bucket's live pairs kept")
 
 
 def stripe_pass_bytes(state, ops, r, outs, *, staged: bool) -> int:
@@ -2082,6 +2141,403 @@ def phase_durable(dev, smi):
     return launches
 
 
+class GatewayTraffic:
+    """Phase 10's client population over ``serve_build``'s content, and the
+    host's model of the index that checks every answer the gateway gives.
+
+    64 clients, each with a private run of sequence ids and tenant c % 8;
+    a client's fresh requests at a tick are a function of (client, tick,
+    seed) alone, so a client sends them again after a crash with the same
+    idempotency keys.  By request: 45% allocs of 1-8 pages below
+    SERVE_PAGES of one sequence (never more keys in a bucket than the
+    build put there, so no step retries), 40% lookups of 1-8 pages (pages
+    below SERVE_PAGES, which hit unless freed, or at 3000 and above, which
+    miss), 10% page enumerations of one sequence, 3% frees, 2% lookups
+    pinned ``as_of`` the previous version.  The hot tenant's clients send
+    four times their rate every fifth tick, clients 1-4 send every request
+    four times, clients 5-7 and 15 set deadlines 0-2 ticks ahead.  The
+    offered ops are GATEWAY_LOAD times what one pump drains.
+
+    The model is the slot of every (sequence, page < SERVE_PAGES), -1 where
+    unmapped, with the copies of the versions a pinned read may ask for."""
+
+    DUPLICATING = (1, 2, 3, 4)
+    STRAGGLERS = (5, 6, 7, 15)
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.span = SERVE_SEQS // GATEWAY_CLIENTS
+        # mean ops a request: allocs and lookups 4.5, enumerations 1, frees SERVE_PAGES
+        mean_cost = 0.87 * 4.5 + 0.10 + 0.03 * SERVE_PAGES
+        self.rate = GATEWAY_LOAD * GATEWAY_BATCH_OPS / (GATEWAY_CLIENTS * mean_cost)
+        self.slots = np.arange(SERVE_SEQS * SERVE_PAGES, dtype=np.int64).reshape(
+            SERVE_SEQS, SERVE_PAGES)
+        self.versions = {0: self.slots.copy()}
+
+    @staticmethod
+    def tenant(c: int) -> str:
+        return "hot" if c % GATEWAY_TENANTS == 0 else f"t{c % GATEWAY_TENANTS}"
+
+    def fresh(self, t: int, version: int) -> list:
+        """Every client's fresh requests at tick ``t``, in client order, each
+        repeated by the duplicating clients; pinned lookups read ``version
+        - 1``."""
+        from repro_torch.serve import PAGE_BITS, Request
+
+        out = []
+        for c in range(GATEWAY_CLIENTS):
+            rng = np.random.default_rng([self.seed, c, t])
+            burst = c % GATEWAY_TENANTS == 0 and t and t % 5 == 0
+            base = c * self.span
+            for i in range(int(rng.poisson(self.rate * (4 if burst else 1)))):
+                key, tenant = f"c{c}:{t}:{i}", self.tenant(c)
+                ahead = int(rng.integers(0, 3)) if c in self.STRAGGLERS else 20
+                kw = dict(deadline=float(t + ahead))
+                seq = base + int(rng.integers(0, self.span))
+                r, k = rng.random(), int(rng.integers(1, 9))
+                if r < 0.45:
+                    pages = rng.choice(SERVE_PAGES, k, replace=False).tolist()
+                    req = Request(tenant, key, "alloc", seqs=(seq,) * k, pages=tuple(pages),
+                                  slots=tuple(rng.integers(0, 1 << 30, k).tolist()), **kw)
+                elif r < 0.85 or r >= 0.98:
+                    seqs = (base + rng.integers(0, self.span, k)).tolist()
+                    hit = rng.random(k) < 0.5
+                    pages = np.where(hit, rng.integers(0, SERVE_PAGES, k),
+                                     rng.integers(3000, 1 << PAGE_BITS, k)).tolist()
+                    if r >= 0.98:
+                        kw["as_of"] = max(version - 1, 0)
+                    req = Request(tenant, key, "lookup", seqs=tuple(seqs), pages=tuple(pages),
+                                  **kw)
+                elif r < 0.95:
+                    req = Request(tenant, key, "pages", seqs=(seq,), **kw)
+                else:
+                    req = Request(tenant, key, "free", seqs=(seq,), **kw)
+                out += [req] * (4 if c in self.DUPLICATING else 1)
+        return out
+
+    def apply(self, req) -> None:
+        """One committed update request into the model."""
+        if req.kind == "alloc":
+            self.slots[req.seqs[0], list(req.pages)] = req.slots
+        elif req.kind == "free":
+            self.slots[req.seqs[0]] = -1
+
+    def keep(self, version: int) -> None:
+        """The model as committed version ``version``; a pinned read can ask
+        for the last two only (``snapshot_window=2``)."""
+        self.versions[version] = self.slots.copy()
+        for v in [v for v in self.versions if v < version - 2]:
+            del self.versions[v]
+
+    def check_read(self, tk) -> None:
+        """A read ticket's value against the model at its version: pinned
+        reads at theirs, the rest after their pump's updates."""
+        req = tk.request
+        model = self.slots if req.as_of is None else self.versions[req.as_of]
+        if req.kind == "lookup":
+            seqs, pages = np.asarray(req.seqs), np.asarray(req.pages)
+            want = np.where(pages < SERVE_PAGES,
+                            model[seqs, np.minimum(pages, SERVE_PAGES - 1)], -1)
+            if tk.value.dtype != np.int32 or not np.array_equal(tk.value, want):
+                raise AssertionError(f"phase 10: lookup {req.key} differs from the model")
+            return
+        (got,) = tk.value
+        row = model[req.seqs[0]]
+        present = np.nonzero(row >= 0)[0]
+        if (got["count"] != len(present) or got["pages"].dtype != np.int32
+                or not np.array_equal(got["pages"], present)
+                or not np.array_equal(got["slots"], row[present])):
+            raise AssertionError(f"phase 10: page enumeration {req.key} differs from the model")
+
+    def check_live_pairs(self, label: str, state) -> None:
+        """The index's live pairs, read through ``bucket_segments``, equal
+        the model's (plus the seed key, last)."""
+        from repro_torch import core
+        from repro_torch.checkpoint.serialize import bucket_segments
+        from repro_torch.serve import PAGE_BITS
+
+        _, keys, vals, _ = bucket_segments(state)
+        s, p = np.nonzero(self.slots >= 0)
+        if not (np.array_equal(keys[:-1], (s << PAGE_BITS) | p)
+                and np.array_equal(vals[:-1], self.slots[s, p])
+                and keys[-1] == core.MAX_VALID):
+            raise AssertionError(f"phase 10: the {label} index's live pairs differ from the model")
+        log(f"  {label} index: {len(keys) - 1} live page keys equal the model's")
+
+
+class PumpClock:
+    """Phase 10's gateway crash hook: stamps each pump's batch formation,
+    its engine steps (the card synchronized) and the acknowledgements on
+    the host clock, and raises :class:`Crash` at ``gateway.step.done`` of
+    the ``crash_at``-th update pump: committed and durable, never
+    acknowledged."""
+
+    def __init__(self, crash_at: int | None = None):
+        self.crash_at, self.updates, self.index = crash_at, 0, None
+        self.t: dict[str, float] = {}
+
+    def __call__(self, event: str) -> None:
+        if event == "gateway.batch.formed":
+            self.t["formed"] = time.perf_counter()
+            self.seq0 = self.index.durable_seq
+        elif event == "gateway.step.done":
+            torch.cuda.synchronize()
+            self.t["step"] = time.perf_counter()
+            if self.index.durable_seq != self.seq0:
+                self.updates += 1
+                if self.updates == self.crash_at:
+                    raise Crash(f"{event} of update pump {self.updates}")
+
+
+class GatewayRun:
+    """One run of phase 10's clients through a gateway: fresh requests for
+    ``GATEWAY_TICKS`` ticks from tick 0, every retryable rejection sent
+    again with its key when its ``retry_after`` has passed, one pump a
+    tick; then ticks of retries alone until nothing is queued or waits for
+    a retry.  Every pump is checked against the model and timed."""
+
+    def __init__(self, label, gw, idx, clock, traffic, smi):
+        self.label, self.gw, self.idx, self.clock = label, gw, idx, clock
+        self.traffic, self.smi = traffic, smi
+        self.tickets, self.attempts, self.retry_at = {}, {}, {}
+        self.resolved: set[str] = set()
+        self.commit_log: list[str] = []
+        self.update_keys: list[str] = []  # the keys of acknowledged update pumps
+        self.latency: list[float] = []
+        self.pumps: list[dict] = []
+        self.launches = {k: 0 for k in SERVE_KERNELS}
+        self.ticks = 0
+
+    def submit(self, req, now: float) -> None:
+        self.tickets[req.key] = self.gw.submit(req, now=now)
+        self.attempts[req.key] = self.attempts.get(req.key, 0) + 1
+
+    def settle(self, now: float) -> None:
+        for key, tk in self.tickets.items():
+            if key in self.resolved or key in self.retry_at or not tk.done:
+                continue
+            self.resolved.add(key)
+            if tk.ok and not tk.duplicate:
+                self.latency.append(tk.finished_at - tk.submitted_at)
+            if (tk.error is not None and tk.error.retryable
+                    and self.attempts[key] <= GATEWAY_MAX_RETRIES):
+                self.retry_at[key] = now + max(1.0, float(tk.error.retry_after or 1.0))
+                self.resolved.discard(key)
+
+    def run(self) -> None:
+        t = 0
+        while t < GATEWAY_TICKS or (t < GATEWAY_TICKS + GATEWAY_DRAIN_TICKS
+                                    and (self.retry_at or self.gw.queue_depth)):
+            now = float(t)
+            for key in sorted(k for k, w in self.retry_at.items() if w <= now):
+                del self.retry_at[key]
+                self.submit(self.tickets[key].request, now)
+            if t < GATEWAY_TICKS:
+                for req in self.traffic.fresh(t, self.idx.version):
+                    self.submit(req, now)
+            self.pump(t)
+            self.settle(now)
+            t += 1
+            self.ticks = t
+        if self.retry_at or self.gw.queue_depth:
+            raise AssertionError(f"phase 10: {self.label} did not drain")
+
+    def pump(self, t: int) -> None:
+        from repro_torch.kernels import LAUNCHES, reset_launches
+
+        idx, clock = self.idx, self.clock
+        version, seq = idx.version, idx.durable_seq
+        clock.t = {}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = self.gw.pump(now=float(t))
+        t1 = time.perf_counter()
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+        self.commit_log += rep.committed_keys
+        reqs = [self.tickets[k].request for k in rep.committed_keys]
+        update = idx.durable_seq != seq
+        if update:  # the batch's keys in its WAL record: all but the pinned reads'
+            self.update_keys += [r.key for r in reqs if r.as_of is None]
+            for req in reqs:
+                self.traffic.apply(req)
+            self.traffic.keep(idx.version)
+        if idx.version != version + update:
+            raise AssertionError(f"phase 10: pump at tick {t} committed {idx.version - version} "
+                                 "versions")
+        if rep.failed_code is not None or int(rep.stats.get("range_truncated", 0)):
+            raise AssertionError(f"phase 10: pump at tick {t}: {rep.failed_code}, {rep.stats}")
+        for req in reqs:
+            if req.kind in ("lookup", "pages"):
+                self.traffic.check_read(self.tickets[req.key])
+        main_pages = any(r.kind == "pages" and r.as_of is None for r in reqs)
+        if update:
+            ranked = 1 if main_pages else 0
+            want = dict(flix_apply=0, flix_apply_staged=1, flix_fence_rows=1,
+                        flix_apply_range=ranked, flix_apply_rank=ranked)
+            if counts != want or int(rep.stats["restructure_retries"]):
+                raise AssertionError(f"phase 10: update pump at tick {t} launched {counts}, "
+                                     f"stats {rep.stats}")
+        elif any(counts.values()):
+            raise AssertionError(f"phase 10: a read-only pump launched {counts}")
+        for k, c in counts.items():
+            self.launches[k] += c
+        if not rep.committed_keys and not rep.expired:
+            return
+        formed = clock.t.get("formed", t0)
+        step = clock.t.get("step", t1)
+        rec = dict(tick=t, update=update, requests=len(rep.committed_keys), ops=rep.n_ops,
+                   formation=(formed - t0) * 1e3, step=(step - formed) * 1e3,
+                   resolution=(t1 - step) * 1e3)
+        line = (f"  {self.label} pump at tick {t} ({'update' if update else 'read-only'}): "
+                f"{rec['requests']} requests, {rec['ops']} ops committed, {rep.expired} "
+                f"expired; host ms formation {rec['formation']:.3f}, index.step "
+                f"{rec['step']:.3f} (synced), resolution {rec['resolution']:.3f}")
+        if update:
+            wal = idx._durable.last_append
+            rec.update(wal_bytes=wal["bytes"], fsync_ms=wal["append_fsync_s"] * 1e3)
+            line += (f"; WAL record {wal['bytes']} B, append + fsync "
+                     f"{rec['fsync_ms']:.3f} ms; launches {counts}")
+        self.pumps.append(rec)
+        log(f"{line} ({self.smi})")
+
+    def summary(self) -> None:
+        m = self.gw.metrics
+        ups = [p for p in self.pumps if p["update"]]
+        lat = np.asarray(self.latency)
+        parts = ", ".join(f"{k} median {median(p[k] for p in self.pumps):.3f}"
+                          for k in ("formation", "step", "resolution"))
+        log(f"  {self.label}: {len(self.pumps)} pumps over {self.ticks} ticks ({len(ups)} "
+            f"update); goodput {m['committed_requests'] / self.ticks:.1f} requests a tick "
+            f"({m['committed_requests']} committed, {m['committed_ops']} ops; submitted "
+            f"{m['submitted']}, duplicates {m['duplicates']}); shed by code {m['rejected']}, "
+            f"expired at formation {m['expired']}; queued latency p50 "
+            f"{np.percentile(lat, 50):.1f}, p99 {np.percentile(lat, 99):.1f} ticks; host ms "
+            f"per pump: {parts}" + (
+                f"; WAL record median {median(p['wal_bytes'] for p in ups):.0f} B, append + "
+                f"fsync median {median(p['fsync_ms'] for p in ups):.3f} ms"
+                if ups else "") + f" ({self.smi})")
+
+
+def make_gateway(idx, clock, traffic):
+    from repro_torch.serve import Gateway
+
+    # each tenant's token bucket refills at its share of the offered ops a
+    # tick and holds one tick of them: the hot tenant's bursts, the
+    # duplicating clients' Poisson spread and the retries overdraw it
+    rate = GATEWAY_LOAD * GATEWAY_BATCH_OPS / GATEWAY_TENANTS
+    gw = Gateway(idx, max_batch_ops=GATEWAY_BATCH_OPS, max_queue_ops=GATEWAY_QUEUE_OPS,
+                 dedup_window=GATEWAY_DEDUP, max_pages=SERVE_PAGES,
+                 range_budget=GATEWAY_RANGE_BUDGET, default_rate=rate,
+                 default_burst=rate, crash_hook=clock)
+    for c in range(GATEWAY_TENANTS):
+        gw.register_tenant(traffic.tenant(c), weight=3.0 if c == 0 else 1.0)
+    return gw
+
+
+def phase_gateway(dev, smi):
+    """The multi-tenant exactly-once gateway over the durable index at
+    phase 6's size, through a crash between commit and acknowledgement:
+    ``serve_build``'s content made durable in a temporary directory
+    (deleted at the end) and opened by ``KVPageIndex(durability_dir=...,
+    snapshot_window=2)``; :class:`GatewayTraffic` through a ``Gateway``
+    until the 12th update pump crashes at ``gateway.step.done``; a new index
+    and gateway on the directory, and every client sending all its
+    requests again from tick 0.  Every read equals the host model, no key
+    commits twice, the crashed pump's keys resolve as duplicates, and the
+    recovered and final indexes hold the model's live pairs."""
+    import tempfile
+
+    from repro_torch.checkpoint import DurableFliX, LocalEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import KVPageIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    index_kw = dict(**geometry, snapshot_window=2, device=dev)
+    traffic = GatewayTraffic(SEED + 10)
+    with tempfile.TemporaryDirectory(prefix="flix-gateway-") as tmp:
+        d = Path(tmp) / "index"
+        built = serve_build(dev)
+        dur, create_ms = host_ms(
+            lambda: DurableFliX.create(d, built, engine=LocalEngine(**geometry, device=dev)))
+        dur.close()
+        del built, dur
+        clock = PumpClock(crash_at=GATEWAY_CRASH_PUMP)
+        idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw, durability_dir=d))
+        clock.index = idx
+        log(f"phase 10: gateway over a durable KVPageIndex of {idx.live_pages()} page keys, "
+            f"nb={idx.state.num_buckets}; durable history created in {create_ms / 1e3:.3f} s, "
+            f"opened in {open_ms / 1e3:.3f} s; {GATEWAY_CLIENTS} clients, "
+            f"{traffic.rate:.2f} fresh requests a client a tick (offered {GATEWAY_LOAD}x of "
+            f"{GATEWAY_BATCH_OPS} ops a pump) ({smi})")
+        first = GatewayRun("first run", make_gateway(idx, clock, traffic), idx, clock,
+                           traffic, smi)
+        try:
+            first.run()
+            raise AssertionError("phase 10: the crash hook never fired")
+        except Crash as e:
+            log(f"  crash at {e} (tick {first.ticks}): committed and durable at seq "
+                f"{idx.durable_seq}, never acknowledged")
+        first.summary()
+        crashed_seq = idx.durable_seq
+        if len(set(first.commit_log)) != len(first.commit_log):
+            raise AssertionError("phase 10: a key committed twice in the first run")
+        launches = dict(first.launches)
+        metrics = [first.gw.metrics]
+        first.gw = first.idx = clock.index = idx = None  # dropped without close()
+
+        reset_launches()
+        idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw, durability_dir=d))
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+        log(recovery_line("after the crash", idx._durable, open_ms, smi))
+        if idx.durable_seq != crashed_seq or counts["flix_apply_staged"] != idx._durable.replayed:
+            raise AssertionError(f"phase 10: recovered seq {idx.durable_seq} of {crashed_seq}, "
+                                 f"replay launches {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        trail = idx.dedup_seed()
+        last_seq, last_meta = trail[-1]
+        trail_keys = [k for _, meta in trail for k in meta["keys"]]
+        if last_seq != crashed_seq or not set(first.update_keys) <= set(trail_keys):
+            raise AssertionError("phase 10: an acknowledged update is missing from the trail")
+        for key in last_meta["keys"]:
+            traffic.apply(first.tickets[key].request)
+        traffic.versions = {0: traffic.slots.copy()}
+        traffic.check_live_pairs("recovered", idx.state)
+
+        clock = PumpClock()
+        clock.index = idx
+        second = GatewayRun("after recovery", make_gateway(idx, clock, traffic), idx, clock,
+                            traffic, smi)
+        second.run()
+        second.summary()
+        log_keys = trail_keys + second.commit_log
+        if len(set(log_keys)) != len(log_keys):
+            raise AssertionError("phase 10: a key committed twice over the trail and the "
+                                 "post-recovery log")
+        for key in last_meta["keys"]:
+            tk = second.tickets[key]
+            if not (tk.ok and tk.duplicate and tk.commit_seq == crashed_seq):
+                raise AssertionError(f"phase 10: the crashed pump's key {key} did not resolve "
+                                     "as a duplicate")
+        metrics.append(second.gw.metrics)
+        for m in metrics:
+            if m["restructure_retries"] or m["engine_failures"]:
+                raise AssertionError(f"phase 10: {m}")
+            if not (m["rejected"].get("QUEUE_FULL") and m["rejected"].get("RATE_LIMITED")):
+                raise AssertionError(f"phase 10: no QUEUE_FULL or RATE_LIMITED shed: {m}")
+        traffic.check_live_pairs("final", idx.state)
+        second.gw.close(now=float(second.ticks))
+        for k, c in second.launches.items():
+            launches[k] += c
+        log(f"  {len(last_meta['keys'])} keys of the crashed pump resolved as duplicates; no "
+            f"key committed twice over {len(trail_keys)} keys of the trail and "
+            f"{len(second.commit_log)} committed after recovery; launches {launches}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return launches
+
+
 def range_count_bytes(state, lo, hi, is_range=None) -> int:
     """Bytes the count pass must move: each op's rank and count written, the
     mask read where there is one, and the bounds of the ops under it; for
@@ -2631,6 +3087,7 @@ def main() -> int:
         ("7", lambda: merge(measured, phase_range(dev, check))),
         ("8", lambda: merge(measured, phase_moe(dev, check))),
         ("9", lambda: serve_launches.append(phase_durable(dev, smi))),
+        ("10", lambda: serve_launches.append(phase_gateway(dev, smi))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

@@ -1327,6 +1327,34 @@ def test_kv_index_on_card_equals_cpu(cuda):
         assert torch.equal(getattr(cards.state, f).cpu(), getattr(host.state, f)), f
 
 
+@pytest.mark.cuda
+def test_gateway_durable_soak_on_card_equals_cpu(cuda, tmp_path):
+    """The hostile-traffic soak of ``torch_traffic_replay.py`` through two
+    durable gateways in lockstep, one over an index on the card (the fused
+    path) and one on the CPU: every ticket, pump report, metric and
+    canonical state equal after every pump, both directories byte-identical
+    at the end."""
+    import torch_traffic_replay as tr
+    from repro_torch.checkpoint.serialize import canonical_state_bytes
+
+    host = tr.make_gateway(tr.make_index(durability_dir=tmp_path / "cpu"))
+    card = tr.make_gateway(tr.make_index(durability_dir=tmp_path / "card", device=cuda))
+    twin = tr.Lockstep(host, card, bytes_a=canonical_state_bytes,
+                       bytes_b=canonical_state_bytes)
+    twin.register_tenant("tenant-hot", rate=24, burst=48, weight=3.0)
+    twin.register_tenant("tenant-mid", rate=16, burst=32)
+    before = LAUNCHES["flix_apply_staged"]
+    res = tr.run_traffic(twin, tr.default_population(0), ticks=20, seed=0)
+    assert LAUNCHES["flix_apply_staged"] > before
+    assert host.metrics["restructure_retries"] >= 1
+    host.close(now=float(res.end_tick))
+    card.close(now=float(res.end_tick))
+    got, want = tr.dir_bytes(tmp_path / "card"), tr.dir_bytes(tmp_path / "cpu")
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name] == want[name], name
+
+
 # The grouped GEMM and its plain version both sum float32 products in float32,
 # in different orders (the kernel with FMA), so they agree to a relative 1e-4
 # of the output's largest magnitude; rows outside every group are exactly 0.

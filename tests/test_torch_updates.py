@@ -164,3 +164,55 @@ def test_empty_state_invariants():
     tcore.check_invariants(st)
     assert int(st.live_keys()) == 0
     assert EMPTY == int(st.node_max.max())
+
+
+def _merge_case(kind, ns, npb):
+    """(JAX state, port state) pairs for ``merge_underfull``: a fresh
+    build, the build grown into chains of split nodes and then thinned by
+    deletes into underfull nodes and emptied buckets, and the thinned
+    state with an expiry plane."""
+    rng = np.random.default_rng(ns * 100 + npb)
+    keys = np.sort(rng.choice(200_000, 6000, replace=False)).astype(np.int32)
+    js = jcore.build(keys[::4], keys[::4] * 3 + 1, node_size=ns, nodes_per_bucket=npb)
+    if kind != "built":
+        grow = np.setdiff1d(keys, keys[::4])
+        js, _ = jcore.insert_safe(js, jnp.asarray(grow), jnp.asarray(grow * 3 + 1))
+        # two keys in three, and one run of keys whole (emptied buckets)
+        gone = np.arange(len(keys)) % 3 != 0
+        gone[3000:3400] = True
+        js, _ = jcore.delete(js, jnp.asarray(keys[gone]))
+    if kind == "ttl":
+        live = np.asarray(js.keys) != EMPTY
+        exps = np.where(live, rng.integers(0, 1000, live.shape), EMPTY).astype(np.int32)
+        js = jcore.attach_expiry(js, jnp.asarray(exps))
+    arrays = {f: np.asarray(getattr(js, f)) for f in STATE_FIELDS}
+    if js.exps is not None:
+        arrays["exps"] = np.asarray(js.exps)
+    return js, tcore.state_from_numpy(arrays, "cpu")
+
+
+@pytest.mark.parametrize("kind", ["built", "thinned", "ttl"])
+@pytest.mark.parametrize("ns,npb", [(8, 4), (32, 16)])
+def test_merge_underfull_matches_reference(kind, ns, npb):
+    """Byte parity under the ROADMAP contract: layout planes equal, vals and
+    exps equal at live slots; I1–I5 hold and the live pairs are kept."""
+    js, ts = _merge_case(kind, ns, npb)
+    want = jcore.merge_underfull(js)
+    got = tcore.merge_underfull(ts)
+    assert got.geometry == want.geometry
+    assert_same_state(want, got)
+    live = np.asarray(want.keys) != EMPTY
+    if kind == "ttl":
+        np.testing.assert_array_equal(
+            np.asarray(want.exps)[live], got.exps.numpy()[live], err_msg="exps"
+        )
+    else:
+        assert got.exps is None
+    tcore.check_invariants(got)
+    before = tcore.state.flatten_bucket_sorted(ts)
+    after = tcore.state.flatten_bucket_sorted(got)
+    assert torch.equal(before[0], after[0])
+    kept = before[0] != EMPTY
+    assert torch.equal(before[1][kept], after[1][kept])
+    if kind != "built":  # the premise: chains of underfull nodes to merge
+        assert int(got.total_nodes()) < int(ts.total_nodes())

@@ -253,6 +253,16 @@ class CrashError(BaseException):
     """Simulated process death (BaseException: nothing may catch it)."""
 
 
+# The serving gateway threads the same hook through its commit path
+# (tests/torch_traffic_replay.py wires one hook into BOTH layers), so one
+# CrashAt/KillAt can fire anywhere between batch formation and client ack:
+GATEWAY_EVENTS = (
+    "gateway.batch.formed",  # batch built, engine step not yet submitted
+    "gateway.step.done",  # step committed (durable if updates), acks not out
+    "gateway.acked",  # every ticket in the batch resolved
+)
+
+
 class CrashAt:
     """Fire at the ``count``-th occurrence of ``event``."""
 
