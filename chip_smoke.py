@@ -187,7 +187,52 @@ line, and no phase catches its own failure:
                 resolution, its WAL record bytes and append + fsync; per
                 run goodput, shed counts by code, queued latency p50 / p99
                 in ticks; the recovery's split; peak device memory;
- 11. the kernels line, the card line, and the result line.
+ 11. tiered    — tiered residency (``repro_torch.core.residency``).  First
+                (3i, after phase 3f) ``TieredFliX`` on the card against
+                ``apply_ops_safe`` on a single-tier copy, exactly, I7 after
+                every batch: phase 3a's 2^18-key state and batches under
+                budgets of the whole index, a tenth and one bucket, batches
+                confined to one bucket and to two (packed states of 1 and 2
+                buckets), a read-only batch that leaves the mirror's bytes,
+                an overflow that grows and replays at 4-key nodes, 2 a
+                bucket, and ``compact()``.  (11a) ``benchmarks/
+                tiered_scale.py``'s traffic at full width: 2^24 even keys
+                (vals = keys >> 1) in 2^20 buckets of 16 32-key nodes
+                (4,437,573,633 B single-tier), sweeps of 6 batches of 2^16
+                ops over a hot window of 5% of the key space moved by half
+                its width each batch, at two read points (read90: 90% reads,
+                POINT 70% / SUCCESSOR 30%, 10% INSERT of fresh odd keys;
+                read70) and two budgets (the whole index; a tenth,
+                443,757,363 B).  Per read point and budget a checked sweep
+                (every batch equal to ``apply_ops`` on a single-tier copy on
+                the card, results and shared stats; at its end the host
+                view's canonical bytes equal to the copy's, and I7), then 2
+                timed sweeps on fresh copies, each batch's results held to
+                the checked sweep's; every batch launches the staged stripe
+                kernel and the fence rows, and at 10x stays within the
+                budget.  Printed per batch of the checked sweep: touched
+                buckets, promoted, demoted, resident bytes, and host ms
+                split into the pre-pass, page-in (sync + gather), the packed
+                fused pass (CUDA events), the meta refresh and page-out; per
+                sweep the ops/s and the parts' sums; per read point
+                goodput(10x) / goodput(1x), each the best timed sweep (the
+                benchmark's rule).  (11b) Durable tiered
+                serving: phase 6's content without its TTL plane made
+                durable, opened by ``KVPageIndex(device_budget=full // 10,
+                durability_dir=..., snapshot_every=4)`` with
+                ``TieredFliX.materialize`` rigged to raise for the whole
+                phase; the open may add at most 64 MiB to the card's peak;
+                phase 6's step mix at 2^11 appends, 2^14 lookups (half hits),
+                2^9 get-or-sets with deadlines (the TTL plane appears
+                mid-stream), 2^6 frees with the slots freed the step before
+                re-admitted with a 128-page prefill, 2^8 enumerations under a
+                2^14 budget, drawn from a hot set of 2^11 of the 2^16
+                sequence slots, every fourth step read-only; each step held
+                against a single-tier reference-engine index; a crash at the
+                6th commit's ``wal.append.partial``; a cold reopen onto the
+                oracle's canonical bytes (host view) and I7; 2 more steps.
+                Cut: depth only (6 batches a sweep; 8 steps);
+ 12. the kernels line, the card line, and the result line.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -196,6 +241,7 @@ without one, or when it runs without the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -246,6 +292,20 @@ GATEWAY_TICKS = 24
 GATEWAY_DRAIN_TICKS = 40  # ticks after the last fresh requests, retries only
 GATEWAY_MAX_RETRIES = 30  # sends of one key before its client gives up
 GATEWAY_CRASH_PUMP = 12  # the update pump whose gateway.step.done ends the first run
+TIERED_KEYS = 1 << 24  # phase 11a: even keys 0 .. 2^25 - 2 (benchmarks/tiered_scale.py)
+TIERED_BATCH = 1 << 16  # ops a batch
+TIERED_ROUNDS = 6  # batches a sweep
+TIERED_HOT = 0.05  # the hot window's share of the key space
+TIERED_POINTS = (("read90", 0.9), ("read70", 0.7))  # read share of a batch
+TIERED_OVERSUB = 10  # the index over the device budget
+TIERED_TIMED_SWEEPS = 2  # phase 11a: sweeps timed after the checked one (the benchmark's)
+TIERED_SHARED_STATS = ("inserted", "deleted", "overflowed_buckets", "range_truncated")
+TIERED_HOT_SEQS = 1 << 11  # phase 11b: the running batch's sequence slots
+TIERED_SERVE = dict(steps=8, appends=1 << 11, lookups=1 << 14, getsets=1 << 9,
+                    frees=1 << 6, ranges=1 << 8, range_budget=1 << 14)
+TIERED_CRASH_COMMIT = 6  # phase 11b: the commit whose half-written record ends the run
+TIERED_AFTER = 2  # phase 11b: steps served after the recovery, the crashed one first
+TIERED_OPEN_SLACK = 64 << 20  # phase 11b: device bytes the cold open may allocate
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
 FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
@@ -1747,14 +1807,34 @@ def check_same_step(label, got, want):
             raise AssertionError(f"{label}: stat {k}: {int(got.stats[k])} != {int(v)}")
 
 
-class ServeTraffic:
-    """The serving steps of phases 6 and 9 over ``serve_build``'s content,
-    and the host's model of the index that checks each step's answers: the
-    base pages [0, base[s]) of each slot, their slots, the get-or-set
-    pages, and the freed ids waiting for reuse."""
+def serve_mix(**kw) -> dict:
+    """One step's mix of work: phase 6's (the ``SERVE_*`` sizes), with
+    ``kw`` overriding any of them."""
+    mix = dict(steps=SERVE_STEPS, appends=SERVE_APPENDS, lookups=SERVE_LOOKUPS,
+               getsets=SERVE_GETSETS, frees=SERVE_FREES, ranges=SERVE_RANGES,
+               range_budget=SERVE_RANGE_BUDGET)
+    mix.update(kw)
+    return mix
 
-    def __init__(self, seed: int):
+
+class ServeTraffic:
+    """The serving steps of phases 6, 9 and 11b over ``serve_build``'s
+    content, and the host's model of the index that checks each step's
+    answers: the base pages [0, base[s]) of each slot, their slots, the
+    get-or-set pages, and the freed ids waiting for reuse.
+
+    ``mix`` sizes a step (:func:`serve_mix`).  ``hot`` draws every step's
+    work from that many sequence slots (an LLM server's running batch): a
+    freed slot leaves the hot set, and the slots freed the update step
+    before come back into it with their prefill.  Every sequence that stays
+    appends at most once a step."""
+
+    def __init__(self, seed: int, mix: dict | None = None, hot: int | None = None):
         self.rng = np.random.default_rng(seed)
+        self.mix = mix if mix is not None else serve_mix()
+        self.hot = None
+        if hot is not None:
+            self.hot = np.sort(self.rng.choice(SERVE_SEQS, hot, replace=False))
         self.base = np.full(SERVE_SEQS, SERVE_PAGES)
         self.slot0 = np.arange(SERVE_SEQS, dtype=np.int64) * SERVE_PAGES
         self.live = np.ones(SERVE_SEQS, bool)
@@ -1765,42 +1845,46 @@ class ServeTraffic:
 
     def step(self, i: int) -> dict:
         """Step ``i``: its ``KVPageIndex.step`` arguments (``kw``) and what
-        :meth:`check` needs.  Every fourth step is read-only; step
-        ``SERVE_STEPS - 1`` leaves out the sequences the newest version
-        re-admitted (phase 6 reads it at the version before)."""
+        :meth:`check` needs.  Every fourth step is read-only; the mix's
+        last step leaves out the sequences the newest version re-admitted
+        (phase 6 reads it at the version before)."""
         from repro_torch import core
         from repro_torch.serve import PAGE_BITS
 
-        rng = self.rng
+        rng, mix = self.rng, self.mix
         now = 10 * (i + 1)
         live_ids = np.nonzero(self.live)[0]
+        if self.hot is not None:
+            live_ids = live_ids[np.isin(live_ids, self.hot)]
         read_only = i % 4 == 3
-        kw = dict(range_budget=SERVE_RANGE_BUDGET, now=now)
+        kw = dict(range_budget=mix["range_budget"], now=now)
         step = dict(i=i, kw=kw, now=now, read_only=read_only)
         frees = np.zeros(0, np.int64)
         if not read_only:
-            frees = rng.choice(live_ids, SERVE_FREES, replace=False)
-            self.readmit = readmit = np.array(self.freed[:SERVE_FREES], np.int64)
-            del self.freed[:SERVE_FREES]
+            n_free = mix["frees"]
+            frees = rng.choice(live_ids, n_free, replace=False)
+            self.readmit = readmit = np.array(self.freed[:n_free], np.int64)
+            del self.freed[:n_free]
             stay = np.setdiff1d(live_ids, frees)
-            appenders = rng.choice(stay, SERVE_APPENDS, replace=False)
+            n_app = min(mix["appends"], len(stay))
+            appenders = rng.choice(stay, n_app, replace=False)
             r_pages = np.tile(np.arange(SERVE_PREFILL), len(readmit))
             a_seq = np.concatenate([appenders, np.repeat(readmit, SERVE_PREFILL)])
-            a_page = np.concatenate([np.full(SERVE_APPENDS, SERVE_PAGES + i), r_pages])
-            r_slot0 = ((1 << 28) + i * SERVE_FREES * SERVE_PREFILL
+            a_page = np.concatenate([np.full(n_app, SERVE_PAGES + i), r_pages])
+            r_slot0 = ((1 << 28) + i * n_free * SERVE_PREFILL
                        + np.arange(len(readmit)) * SERVE_PREFILL)
-            a_slot = np.concatenate([(1 << 27) + i * SERVE_APPENDS + np.arange(SERVE_APPENDS),
+            a_slot = np.concatenate([(1 << 27) + i * n_app + np.arange(n_app),
                                      np.repeat(r_slot0, SERVE_PREFILL) + r_pages])
-            a_dead = np.concatenate([np.full(SERVE_APPENDS, now + SERVE_TTL),
+            a_dead = np.concatenate([np.full(n_app, now + SERVE_TTL),
                                      np.full(len(r_pages), int(core.NO_EXPIRY))])
             # get-or-sets: half re-ask the previous step's pages (hits while
             # their sequence lives), half ask fresh pages (misses)
             old = self.prev_gs[np.isin(self.prev_gs >> PAGE_BITS, frees, invert=True)]
-            old = old[: SERVE_GETSETS // 2]
-            fresh_seq = rng.choice(stay, SERVE_GETSETS - len(old), replace=False)
+            old = old[: mix["getsets"] // 2]
+            fresh_seq = rng.choice(stay, mix["getsets"] - len(old), replace=False)
             fresh = (fresh_seq << PAGE_BITS) | (2048 + i)
             gs = np.concatenate([old, fresh])
-            gs_slot = (1 << 29) + i * SERVE_GETSETS + np.arange(len(gs))
+            gs_slot = (1 << 29) + i * mix["getsets"] + np.arange(len(gs))
             kw.update(allocs=(a_seq, a_page, a_slot, a_dead),
                       getsets=(gs >> PAGE_BITS, gs & ((1 << PAGE_BITS) - 1), gs_slot,
                                np.full(len(gs), now + 80)),
@@ -1811,14 +1895,18 @@ class ServeTraffic:
         # lookups: half hits on base pages of sequences that stay, half
         # misses on pages never allocated
         stay = np.setdiff1d(live_ids, frees)
-        if i == SERVE_STEPS - 1:
+        if i == mix["steps"] - 1:
             stay = np.setdiff1d(stay, self.readmit)
-        h_seq = rng.choice(stay, SERVE_LOOKUPS // 2)
+        n_look = mix["lookups"]
+        h_seq = rng.choice(stay, n_look // 2)
         h_page = (rng.random(len(h_seq)) * self.base[h_seq]).astype(np.int64)
-        m_seq = rng.integers(0, SERVE_SEQS, SERVE_LOOKUPS // 2)
-        m_page = rng.integers(3000, 1 << PAGE_BITS, SERVE_LOOKUPS // 2)
+        if self.hot is None:
+            m_seq = rng.integers(0, SERVE_SEQS, n_look // 2)
+        else:
+            m_seq = rng.choice(self.hot, n_look // 2)
+        m_page = rng.integers(3000, 1 << PAGE_BITS, n_look // 2)
         kw["lookups"] = (np.concatenate([h_seq, m_seq]), np.concatenate([h_page, m_page]))
-        r_seq = rng.choice(stay, SERVE_RANGES, replace=False)
+        r_seq = rng.choice(stay, mix["ranges"], replace=False)
         kw["ranges"] = (r_seq << PAGE_BITS, (r_seq + 1) << PAGE_BITS)
         step.update(h_seq=h_seq, h_page=h_page)
         return step
@@ -1827,7 +1915,14 @@ class ServeTraffic:
     def fullest(step: dict, state) -> int:
         """The fullest bucket the update step's inserts could make, which
         must stay within half a bucket: no bucket may overflow, so no step
-        retries (``restructure_grow`` at this size asks for ~1.8 TB)."""
+        retries (``restructure_grow`` at this size asks for ~1.8 TB).  A
+        tiered index answers from its host metadata."""
+        if hasattr(state, "h_mkba"):
+            per = np.bincount(np.searchsorted(state.h_mkba, step["ins_keys"]),
+                              minlength=state.num_buckets)
+            fullest = int((state.h_live + per).max())
+            assert fullest <= state.nodes_per_bucket * state.node_size // 2, fullest
+            return fullest
         ins = torch.as_tensor(step["ins_keys"], dtype=torch.int32, device=state.device)
         per = torch.bincount(torch.searchsorted(state.mkba, ins), minlength=state.num_buckets)
         fullest = int((state.node_count.sum(1) + per).max())
@@ -1840,7 +1935,7 @@ class ServeTraffic:
         then the model takes the step's updates."""
         i = step["i"]
         slots = got.slots.cpu().numpy().astype(np.int64)
-        n_look = SERVE_LOOKUPS
+        n_look = self.mix["lookups"]
         if not (slots[: n_look // 2] == self.slot0[step["h_seq"]] + step["h_page"]).all():
             raise AssertionError(f"serve step {i}: a lookup hit returned a wrong slot")
         if not (slots[n_look // 2 : n_look] == -1).all():
@@ -1860,6 +1955,8 @@ class ServeTraffic:
         self.live[readmit] = True
         self.base[readmit] = SERVE_PREFILL
         self.slot0[readmit] = step["r_slot0"]
+        if self.hot is not None:
+            self.hot = np.union1d(np.setdiff1d(self.hot, frees), readmit)
 
 
 SERVE_KERNELS = ("flix_apply", "flix_apply_staged", "flix_apply_range", "flix_apply_rank",
@@ -1962,9 +2059,9 @@ class CrashAt:
                 raise Crash(f"{event}#{self.count}")
 
 
-def snapshot_line(label, t, smi) -> str:
+def snapshot_line(label, t, smi, where="on the card") -> str:
     return (f"  {label}: {t['kind']} snapshot, payload {t['payload_bytes']} B + manifest "
-            f"{t['manifest_bytes']} B; canonicalize on the card {t['canonicalize_s']:.3f} s, "
+            f"{t['manifest_bytes']} B; canonicalize {where} {t['canonicalize_s']:.3f} s, "
             f"framing + crcs + manifest {t['crc_s']:.3f} s, write + fsync "
             f"{t['write_fsync_s']:.3f} s ({smi})")
 
@@ -2538,6 +2635,444 @@ def phase_gateway(dev, smi):
     return launches
 
 
+def state_on_cpu(state):
+    """A copy of ``state`` on the CPU."""
+    from repro_torch.core.state import FliXState
+
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(FliXState)}
+    return FliXState(**{k: None if v is None else v.cpu() for k, v in fields.items()})
+
+
+def tiered_line(tiered) -> str:
+    """A tiered apply's parts from ``TieredFliX.last_timings``: the packed
+    pass is the fused path on an update batch, the reference engine on a
+    read-only step."""
+    t = tiered.last_timings
+    return (f"touched {t['touched']}, working set {t['working_set']} (padded {t['padded']}); "
+            f"host ms: touched_buckets {t['touched_ms']:.3f}, page-in {t['sync_ms'] + t['gather_ms']:.3f} "
+            f"(sync {t['sync_ms']:.3f} + gather {t['gather_ms']:.3f}), packed pass "
+            f"{t['pass_ms']:.3f} by CUDA events ({t['pass_host_ms']:.3f} host), meta refresh "
+            f"{t['meta_ms']:.3f}, page-out {t['page_out_ms']:.3f}")
+
+
+def residency_line(stats) -> str:
+    return (f"promoted {int(stats['promoted'])}, demoted {int(stats['demoted'])}, resident "
+            f"{int(stats['resident_bytes'])} B")
+
+
+def check_tiered(label, got, want, counts=None):
+    """A tiered batch against the single-tier engine on the same batch:
+    results and the shared stats equal; with ``counts``, the committed batch
+    ran the fused path's stripe kernel and its fence rows."""
+    results, stats, _ = got
+    _, want_results, want_stats = want
+    for k in want_results:
+        if not torch.equal(results[k], want_results[k]):
+            raise AssertionError(f"{label}: result {k} differs from the single-tier engine")
+    for k in TIERED_SHARED_STATS:
+        if int(stats[k]) != int(want_stats[k]):
+            raise AssertionError(f"{label}: stat {k}: {int(stats[k])} != {int(want_stats[k])}")
+    if counts is not None and min(counts["flix_apply_staged"], counts["flix_fence_rows"]) < 1:
+        raise AssertionError(f"{label}: a committed tiered batch did not launch the stripe "
+                             f"kernel and the fence rows: {counts}")
+
+
+def check_tiered_state(label, tiered, state):
+    """The tiered index's synced mirror against a single-tier state (the
+    parity contract: vals at live slots), and I7."""
+    from repro_torch import core
+
+    check_same_state(label, tiered.host_view(), state_on_cpu(state))
+    core.check_tiered_invariants(tiered)
+
+
+def local_batch(state, buckets, rng):
+    """Ops confined to the adjacent ``buckets`` of ``state``: fresh keys
+    inserted into each, half its live keys deleted and the rest read, and
+    one RANGE from the first bucket's lowest key to the last's highest."""
+    from repro_torch import core
+
+    mkba = state.mkba.cpu().numpy().astype(np.int64)
+    tags, keys = [], []
+    for b in buckets:
+        lo, hi = int(mkba[b - 1]) + 1, int(mkba[b])
+        live = state.keys[b].reshape(-1).cpu().numpy()
+        live = live[live != core.EMPTY]
+        fresh = np.setdiff1d(rng.integers(lo, hi + 1, 8), live)
+        for tag, k in ((core.OP_INSERT, fresh), (core.OP_DELETE, live[::2][:4]),
+                       (core.OP_POINT, live[1::2][:4])):
+            tags.append(np.full(len(k), tag, np.int32))
+            keys.append(k)
+    lo, hi = int(mkba[buckets[0] - 1]) + 1, int(mkba[buckets[-1]])
+    tags.append(np.array([core.OP_RANGE], np.int32))
+    keys.append(np.array([lo]))
+    keys = np.concatenate(keys).astype(np.int32)
+    vals = (keys * 3).astype(np.int32)
+    vals[-1] = hi
+    return np.concatenate(tags), keys, vals
+
+
+def phase_tiered_small(dev):
+    """Phase 3i: ``TieredFliX`` on the card against ``apply_ops_safe`` on a
+    single-tier copy, exactly, with I7 after every batch: at 2^18 keys in
+    the default geometry under three budgets (unbounded, a tenth, one
+    bucket) over phase 3a's mixed and boundary batches and two batches
+    confined to one bucket and to two (packed states of 1 and 2 buckets
+    through the fused path); a read-only batch that must leave the mirror's
+    bytes as they were; then an overflow that grows and replays at 4-key
+    nodes, 2 a bucket, and ``compact()`` after most keys are deleted."""
+    from repro_torch import core
+    from repro_torch.checkpoint import canonical_state_bytes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)  # phase 3a's draws
+    cfg = core.ExecConfig(max_results=8192)
+    traffic = Traffic(1 << 21, 1 << 18, gen)
+    base = core.build(*traffic.initial())
+    batches = [traffic.mixed(1 << 16) for _ in range(4)] + [traffic.boundary()]
+    full = base.memory_bytes()
+    log(f"phase 3i: TieredFliX at 2^18 keys, nb={base.num_buckets}, {full} B single-tier")
+
+    def run(label, tiered, oracle, tags, keys, vals, *, safe=True):
+        ops, _ = core.make_ops(tags, keys, vals)
+        reset_launches()
+        got = tiered.apply(ops, config=cfg)
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+        want = (core.apply_ops_safe if safe else core.apply_ops)(oracle, ops, config=cfg)
+        check_tiered(label, got, want, counts)
+        if int(got[1]["restructure_retries"]) != int(want[2].get("restructure_retries", 0)):
+            raise AssertionError(f"{label}: retries {got[1]} != {want[2]}")
+        check_tiered_state(label, tiered, want[0])
+        return want[0], got
+
+    for name, budget in (("unbounded", None), ("a tenth", full // 10), ("one bucket", 1)):
+        rng = np.random.default_rng(SEED + 9)
+        tiered = core.TieredFliX.from_state(base, budget_bytes=budget)
+        oracle = base
+        widths = []
+        for i, (tags, keys, vals) in enumerate(batches):
+            oracle, _ = run(f"3i {name} batch {i}", tiered, oracle, tags, keys, vals)
+            widths.append(tiered.last_timings["working_set"])
+        live = oracle.node_count.sum(1).cpu().numpy()
+        pairs = np.nonzero((live[1:-2] > 4) & (live[2:-1] > 4))[0] + 1
+        b = int(pairs[len(pairs) // 2])
+        # under one bucket: the first batch pages b in beside the resident
+        # bucket, the second finds b alone resident (a packed state of one
+        # bucket), the third adds b + 1 (two)
+        for width, buckets in ((None, [b]), (1, [b]), (2, [b, b + 1])):
+            oracle, got = run(f"3i {name} batch in buckets {buckets}", tiered, oracle,
+                              *local_batch(oracle, buckets, rng))
+            widths.append(tiered.last_timings["working_set"])
+            if budget == 1 and width is not None and widths[-1] != width:
+                raise AssertionError(f"3i {name}: working set {widths[-1]}, not {width}")
+        if budget is not None and tiered.memory_bytes_resident() > max(budget, tiered.bucket_bytes):
+            raise AssertionError(f"3i {name}: resident bytes over the budget")
+        # a read-only batch: pages move, the logical content does not
+        before = canonical_state_bytes(tiered.host_view())
+        q = oracle.keys[oracle.keys != core.EMPTY][:: 97].to(torch.int32)
+        tags = torch.where(torch.arange(q.numel(), device=dev) % 2 == 0, core.OP_POINT,
+                           core.OP_SUCCESSOR).to(torch.int32)
+        ops, _ = core.make_ops(tags, q)
+        got = tiered.apply(ops, config=cfg, commit=False)
+        check_tiered(f"3i {name} read-only", got, core.apply_ops(oracle, ops, config=cfg))
+        if canonical_state_bytes(tiered.host_view()) != before:
+            raise AssertionError(f"3i {name}: a read-only batch changed the mirror")
+        core.check_tiered_invariants(tiered)
+        log(f"  budget {name}: 8 batches and a read-only one equal the single-tier engine, "
+            f"I7 after each; working sets {widths}; promoted {tiered.promoted_total}, demoted "
+            f"{tiered.demoted_total}, resident {tiered.memory_bytes_resident()} B")
+        if budget == 1 and not tiered.demoted_total:
+            raise AssertionError("3i: the one-bucket budget never paged out")
+        del tiered
+
+    keys = torch.arange(0, 640, 10, dtype=torch.int32, device=dev)  # phase 3c's flood
+    state = core.build(keys, keys, node_size=4, nodes_per_bucket=2)
+    tiered = core.TieredFliX.from_state(state, budget_bytes=state.memory_bytes() // 10)
+    flood = torch.arange(1, 200, 2, dtype=torch.int32, device=dev)
+    tags = torch.cat([torch.full((flood.numel(),), core.OP_INSERT, dtype=torch.int32,
+                                 device=dev),
+                      torch.full((keys.numel(),), core.OP_SUCCESSOR, dtype=torch.int32,
+                                 device=dev)])
+    state, got = run("3i overflow", tiered, state, tags, torch.cat([flood, keys + 3]),
+                     torch.cat([flood * 7, torch.zeros_like(keys)]))
+    if not got[2]:
+        raise AssertionError("3i: the flood did not grow and replay")
+    grown = tiered.geometry
+    live = torch.cat([keys, flood])
+    dels = live[: live.numel() * 9 // 10]
+    state, _ = run("3i delete 90%", tiered, state,
+                   torch.full((dels.numel(),), core.OP_DELETE, dtype=torch.int32, device=dev),
+                   dels, torch.zeros_like(dels))
+    want, want_reclaimed = core.restructure_shrink(state)
+    reclaimed = tiered.compact()
+    if reclaimed != want_reclaimed or reclaimed <= 0:
+        raise AssertionError(f"3i compact: reclaimed {reclaimed} != {want_reclaimed}")
+    check_tiered_state("3i compact", tiered, want)
+    log(f"  overflow at 4-key nodes, 2 a bucket: grew and replayed into geometry {grown}, "
+        f"as apply_ops_safe does; after 90% deleted, compact() reclaimed {reclaimed} B into "
+        f"geometry {tiered.geometry}, as restructure_shrink does; I7 after each")
+
+
+def tiered_window_batches(rng, read_frac: float, dev) -> list:
+    """``benchmarks/tiered_scale.py``'s batches at ``TIERED_BATCH`` ops: a hot
+    window of ``TIERED_HOT`` of the key space, moved by half its width each
+    batch; reads (POINT 70%, SUCCESSOR 30%) uniform in the window, the rest
+    INSERTs of odd (absent) keys of the window."""
+    from repro_torch import core
+
+    span = 2 * TIERED_KEYS
+    width = max(64, int(span * TIERED_HOT))
+    out = []
+    for t in range(TIERED_ROUNDS):
+        lo = (t * width // 2) % max(1, span - width)
+        n_read = int(TIERED_BATCH * read_frac)
+        n_ins = TIERED_BATCH - n_read
+        reads = rng.integers(lo, lo + width, n_read)
+        odd = lo | 1
+        ins = odd + 2 * rng.choice((lo + width - odd + 1) // 2, n_ins, replace=False)
+        keys = np.concatenate([reads, ins]).astype(np.int32)
+        tags = np.concatenate([
+            rng.choice(np.array([core.OP_POINT, core.OP_SUCCESSOR], np.int32), n_read,
+                       p=[0.7, 0.3]),
+            np.full(n_ins, core.OP_INSERT, np.int32),
+        ])
+        out.append(core.make_ops(tags, keys, (keys * 3 + t).astype(np.int32), device=dev)[0])
+    return out
+
+
+def tiered_sums(parts: list[dict]) -> str:
+    """A sweep's tiered parts summed over its batches (ms)."""
+    keys = ("touched_ms", "sync_ms", "gather_ms", "pass_ms", "meta_ms", "page_out_ms")
+    return ", ".join(f"{k[:-3]} {sum(t[k] for t in parts):.1f}" for k in keys)
+
+
+def phase_tiered(dev, smi):
+    """Phase 11a: the tiered engine at the paper's smallest build, 2^24 even
+    keys (vals = keys >> 1) in 2^20 buckets of 16 32-key nodes, under
+    ``benchmarks/tiered_scale.py``'s traffic at two read points and two
+    budgets (the whole index, and a tenth of it).  Per read point and
+    budget, as the benchmark does: a first sweep, checked (every batch
+    equal to ``apply_ops`` on a single-tier copy on the card; at its end the
+    host view's canonical bytes equal to the copy's, and I7), then
+    ``TIERED_TIMED_SWEEPS`` more on fresh tiered copies, each batch's
+    results held to the first sweep's single-tier ones; goodput is the best
+    of those.  Every batch launches the stripe kernel and the fence rows,
+    and at 10x stays within the budget."""
+    from repro_torch import core
+    from repro_torch.checkpoint import canonical_state_bytes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    keys = torch.arange(0, 2 * TIERED_KEYS, 2, dtype=torch.int32, device=dev)
+    base, build_ms = host_ms(lambda: core.build(keys, keys >> 1, node_size=32,
+                                                nodes_per_bucket=16))
+    del keys
+    full = base.memory_bytes()
+    budget10 = full // TIERED_OVERSUB
+    log(f"phase 11a: tiered engine on {TIERED_KEYS} keys, nb={base.num_buckets}, {full} B "
+        f"single-tier (built in {build_ms:.1f} ms); budgets 1x (None) and "
+        f"{TIERED_OVERSUB}x ({budget10} B); sweeps of {TIERED_ROUNDS} batches of "
+        f"{TIERED_BATCH} ops over a {TIERED_HOT:.0%} hot window ({smi})")
+    rng = np.random.default_rng(SEED + 11)
+    launches = {k: 0 for k in SERVE_KERNELS}
+
+    def run_batch(label, tiered, ops, want, budget):
+        reset_launches()
+        got, ms = host_ms(lambda: tiered.apply(ops))
+        counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+        check_tiered(label, got, want, counts)
+        if budget is not None and int(got[1]["resident_bytes"]) > budget:
+            raise AssertionError(f"{label}: resident bytes over the budget")
+        for k, c in counts.items():
+            launches[k] += c
+        return got, ms
+
+    for point, read_frac in TIERED_POINTS:
+        batches = tiered_window_batches(rng, read_frac, dev)
+        goodput = {}
+        for oversub, budget in ((1, None), (TIERED_OVERSUB, budget10)):
+            label = f"11a {point} {oversub}x"
+            tiered, adopt_ms = host_ms(lambda: core.TieredFliX.from_state(base,
+                                                                          budget_bytes=budget))
+            log(f"  {label}: from_state (one full page-out into page-locked memory) "
+                f"{adopt_ms:.1f} ms")
+            oracle, wants, engine_ms = base, [], 0.0
+            for t, ops in enumerate(batches):
+                want = core.apply_ops(oracle, ops)
+                oracle = want[0]
+                wants.append((None, want[1], want[2]))
+                got, ms = run_batch(f"{label} batch {t}", tiered, ops, want, budget)
+                engine_ms += ms
+                log(f"    batch {t}: {ms:.3f} ms; {residency_line(got[1])}; "
+                    f"{tiered_line(tiered)}")
+            got_bytes, canon_ms = host_ms(lambda: canonical_state_bytes(tiered.host_view()))
+            if got_bytes != canonical_state_bytes(oracle):
+                raise AssertionError(f"{label}: the host view's canonical bytes differ")
+            _, inv_ms = host_ms(lambda: core.check_tiered_invariants(tiered))
+            if budget is not None and not tiered.demoted_total:
+                raise AssertionError(f"{label}: nothing was paged out")
+            log(f"  {label}, checked sweep: {TIERED_ROUNDS * TIERED_BATCH / engine_ms * 1e3:.0f} "
+                f"ops/s ({engine_ms:.1f} ms); promoted {tiered.promoted_total}, demoted "
+                f"{tiered.demoted_total}, resident {tiered.memory_bytes_resident()} B; host "
+                f"view's canonical bytes equal the single-tier copy's ({canon_ms:.0f} ms on the "
+                f"host), I7 holds ({inv_ms:.0f} ms)")
+            del tiered, oracle, want, got
+            rates = []
+            for r in range(TIERED_TIMED_SWEEPS):
+                tiered = core.TieredFliX.from_state(base, budget_bytes=budget)
+                engine_ms, parts = 0.0, []
+                for t, ops in enumerate(batches):
+                    _, ms = run_batch(f"{label} sweep {r + 2} batch {t}", tiered, ops, wants[t],
+                                      budget)
+                    engine_ms += ms
+                    parts.append(tiered.last_timings)
+                rates.append(TIERED_ROUNDS * TIERED_BATCH / engine_ms * 1e3)
+                log(f"  {label}, sweep {r + 2}: {rates[-1]:.0f} ops/s ({engine_ms:.1f} ms; "
+                    f"{tiered_sums(parts)}); promoted {tiered.promoted_total}, demoted "
+                    f"{tiered.demoted_total}")
+                del tiered
+            goodput[oversub] = max(rates)
+        log(f"  {point}: tiered_degradation_ratio = goodput({TIERED_OVERSUB}x) / goodput(1x) = "
+            f"{goodput[TIERED_OVERSUB]:.0f} / {goodput[1]:.0f} = "
+            f"{goodput[TIERED_OVERSUB] / goodput[1]:.3f} ({smi})")
+    log(f"  launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def tiered_open_line(label, dur, ms, smi) -> str:
+    t = dur.timings
+    return (f"  {label}: recovered seq {dur.seq} in {ms / 1e3:.3f} s: chain load "
+            f"{t['chain_load_s']:.3f} s, host build {t['rebuild_s']:.3f} s, replay of "
+            f"{dur.replayed} records {t['replay_s']:.3f} s ({smi})")
+
+
+def phase_tiered_durable(dev, smi):
+    """Phase 11b: durable tiered serving with cold-tier recovery.
+    ``serve_build``'s content made durable (``LocalEngine``) in a temporary
+    directory, opened by ``KVPageIndex(device_budget=full // 10,
+    durability_dir=...)`` with ``TieredFliX.materialize`` rigged to raise
+    for the whole phase; phase 6's step mix at ``TIERED_SERVE``'s sizes from
+    a hot set of ``TIERED_HOT_SEQS`` sequences, each step held against a
+    single-tier reference-engine index; a crash at the
+    ``TIERED_CRASH_COMMIT``-th commit's ``wal.append.partial``; a cold
+    reopen onto the oracle's canonical bytes; the remaining steps."""
+    import tempfile
+
+    from repro_torch import core
+    from repro_torch.checkpoint import DurableFliX, LocalEngine, canonical_state_bytes
+    from repro_torch.core.residency import TieredFliX
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import KVPageIndex
+
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    launches = {k: 0 for k in SERVE_KERNELS}
+    materialize = TieredFliX.materialize
+
+    def refuse(self):
+        raise AssertionError("phase 11b: the whole index materialized on the card")
+
+    with tempfile.TemporaryDirectory(prefix="flix-tiered-") as tmp:
+        d = Path(tmp) / "index"
+        built = serve_build(dev)
+        budget = built.memory_bytes() // TIERED_OVERSUB
+        dur, create_ms = host_ms(
+            lambda: DurableFliX.create(d, built, engine=LocalEngine(**geometry, device=dev)))
+        dur.close()
+        del built, dur
+        index_kw = dict(**geometry, durability_dir=d, snapshot_every=DURABLE_SNAPSHOT_EVERY,
+                        device_budget=budget, device=dev)
+        TieredFliX.materialize = refuse
+        try:
+            hook = CrashAt("wal.append.partial", TIERED_CRASH_COMMIT)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw, crash_hook=hook))
+            grew = torch.cuda.max_memory_allocated() - before
+            log(f"phase 11b: durable history of {idx.live_pages()} page keys created in "
+                f"{create_ms / 1e3:.3f} s; tiered open with budget {budget} B "
+                f"({idx.state.budget_buckets} buckets), device peak {grew} B over what was "
+                f"allocated before it")
+            log(tiered_open_line("KVPageIndex(device_budget=..., durability_dir=...)",
+                                 idx._durable, open_ms, smi))
+            if grew > TIERED_OPEN_SLACK:
+                raise AssertionError(f"phase 11b: the open allocated {grew} B on the card")
+            oracle = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"),
+                                 device=dev)
+            oracle.state = serve_build(dev)
+            traffic = ServeTraffic(SEED + 12, mix=serve_mix(**TIERED_SERVE),
+                                   hot=TIERED_HOT_SEQS)
+
+            def serve(i, step, label):
+                read_only = step["read_only"]
+                if not read_only:
+                    ServeTraffic.fullest(step, idx.state)
+                reset_launches()
+                got, ms = host_ms(lambda: idx.step(**step["kw"]))
+                counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+                check_same_step(f"{label} {i}", got, oracle.step(**step["kw"]))
+                traffic.check(step, got)
+                if read_only:
+                    if any(counts.values()):
+                        raise AssertionError(f"{label} {i}: a read-only step launched {counts}")
+                else:
+                    check_update_launches(f"{label} {i}", counts)
+                    assert int(got.stats["restructure_retries"]) == 0, got.stats
+                if idx.resident_bytes > budget:
+                    raise AssertionError(f"{label} {i}: resident bytes over the budget")
+                for k, c in counts.items():
+                    launches[k] += c
+                log(f"  {label} {i} ({'read' if read_only else 'update'}, durable seq "
+                    f"{idx.durable_seq}): {ms:.3f} ms; {residency_line(got.stats)}; "
+                    f"{tiered_line(idx.state)}")
+                if not read_only and idx.durable_seq % DURABLE_SNAPSHOT_EVERY == 0:
+                    log(snapshot_line(f"seq {idx.durable_seq}", idx._durable.last_timings, smi,
+                                      where="on the host"))
+
+            crash_step, i = None, 0
+            while crash_step is None:
+                step = traffic.step(i)
+                try:
+                    serve(i, step, "step")
+                except Crash:
+                    crash_step = step
+                    break
+                i += 1
+            acked = idx.durable_seq
+            if acked != TIERED_CRASH_COMMIT - 1:
+                raise AssertionError(f"phase 11b: crashed after {acked} commits")
+            idx = None  # dropped without close(), as a dead process leaves it
+            want_bytes = canonical_state_bytes(oracle.state)
+
+            reset_launches()
+            idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw))
+            counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
+            log(tiered_open_line("cold reopen after the crash", idx._durable, open_ms, smi))
+            if idx.durable_seq != acked or idx._durable.replayed < 1:
+                raise AssertionError(f"phase 11b: recovered seq {idx.durable_seq} of {acked}")
+            check_update_launches("phase 11b replay", counts)
+            for k, c in counts.items():
+                launches[k] += c
+            got_bytes, canon_ms = host_ms(lambda: canonical_state_bytes(idx.state.host_view()))
+            if got_bytes != want_bytes:
+                raise AssertionError("phase 11b: the recovered host view's bytes differ")
+            core.check_tiered_invariants(idx.state)
+            log(f"  replay launches {counts}; the host view's canonical bytes at seq {acked} "
+                f"equal the oracle's ({canon_ms:.0f} ms on the host); I7 holds")
+            for j in range(TIERED_AFTER):
+                step = crash_step if j == 0 else traffic.step(crash_step["i"] + j)
+                serve(crash_step["i"] + j, step, "step after recovery")
+            if canonical_state_bytes(idx.state.host_view()) != canonical_state_bytes(oracle.state):
+                raise AssertionError("phase 11b: the final bytes differ from the oracle's")
+            idx.close()
+        finally:
+            TieredFliX.materialize = materialize
+    log(f"  launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return launches
+
+
 def range_count_bytes(state, lo, hi, is_range=None) -> int:
     """Bytes the count pass must move: each op's rank and count written, the
     mask read where there is one, and the bounds of the ops under it; for
@@ -3081,6 +3616,7 @@ def main() -> int:
         ("3d", lambda: phase_kernel_ops(dev, check)),
         ("3g", lambda: phase_walk(dev, check)),
         ("3f", lambda: phase_gemm(dev, check)),
+        ("3i", lambda: phase_tiered_small(dev)),
         ("4", lambda: merge(measured, phase_main(dev))),
         ("5", lambda: merge(measured, phase_fig9(dev, check))),
         ("6", lambda: serve_launches.append(phase_serve(dev))),
@@ -3088,6 +3624,8 @@ def main() -> int:
         ("8", lambda: merge(measured, phase_moe(dev, check))),
         ("9", lambda: serve_launches.append(phase_durable(dev, smi))),
         ("10", lambda: serve_launches.append(phase_gateway(dev, smi))),
+        ("11a", lambda: serve_launches.append(phase_tiered(dev, smi))),
+        ("11b", lambda: serve_launches.append(phase_tiered_durable(dev, smi))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

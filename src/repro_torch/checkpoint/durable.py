@@ -84,7 +84,9 @@ def _noop_hook(event: str) -> None:
 class EngineBase:
     """Shared engine surface the durability layer talks to: besides
     ``rebuild`` / ``flix`` / ``apply``, four read-only views of the handle,
-    through ``flix()`` (a full device state)."""
+    through ``flix()`` (a full device state).  ``TieredEngine`` overrides
+    all four with host-tier versions, so that durability never puts the
+    whole index on the device."""
 
     def mkba_host(self, handle) -> np.ndarray:
         """The fence array as host numpy (dirty-bucket routing)."""
@@ -182,15 +184,79 @@ class ShardEngine(EngineBase):
 
 
 class TieredEngine(EngineBase):
-    """The tiered-residency executor behind the durability layer: not
-    ported yet."""
+    """The budget-bounded tiered executor (``core.residency``) behind the
+    durability layer.
+
+    The handle is a ``TieredFliX``, and every hook runs against its host
+    tier: recovery builds the mirror with the numpy twin of
+    ``state_from_pairs`` (the same layout, no device allocation), snapshots
+    canonicalize the synced mirror on the host, and the expired-bucket scan
+    before an apply reads the per-bucket deadline metadata.  So a durable
+    tiered index never needs the whole structure on the device; the
+    restructure inside ``TieredFliX.apply`` is the one exception, for the
+    length of a grow and replay.  ``device`` is where the packed working
+    set lives: the card unless the caller names another.
+    """
 
     kind = "tiered"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TieredEngine: tiered residency is not ported yet (ROADMAP Queue 1 item 10)"
+    def __init__(
+        self,
+        *,
+        budget_bytes: int | None = None,
+        config: ExecConfig | None = None,
+        node_size: int = 32,
+        nodes_per_bucket: int = 16,
+        fill: float = 0.5,
+        device=None,
+    ):
+        self.budget_bytes = budget_bytes
+        self.config = config if config is not None else ExecConfig()
+        self.node_size = node_size
+        self.nodes_per_bucket = nodes_per_bucket
+        self.fill = fill
+        self.device = resolve_device(device)
+
+    def rebuild(self, keys, vals, exps=None, geometry: dict | None = None):
+        from repro_torch.core.residency import TieredFliX
+
+        g = geometry or {}
+        return TieredFliX.from_pairs(
+            keys,
+            vals,
+            exps,
+            node_size=g.get("node_size", self.node_size),
+            nodes_per_bucket=g.get("nodes_per_bucket", self.nodes_per_bucket),
+            fill=g.get("fill", self.fill),
+            budget_bytes=self.budget_bytes,
+            device=self.device,
         )
+
+    def flix(self, handle):
+        # inspection only: this materializes the whole state on the device,
+        # which the hooks below exist to avoid
+        return handle.materialize()
+
+    def apply(self, handle, ops: OpBatch, *, max_results: int, now=None):
+        """``TieredFliX.apply``, which grows and replays on overflow itself."""
+        results, stats, restructured = handle.apply(
+            ops, config=self.config.replace(max_results=max_results), now=now
+        )
+        return handle, results, stats, restructured
+
+    def mkba_host(self, handle) -> np.ndarray:
+        return handle.h_mkba
+
+    def geometry(self, handle) -> tuple[int, int, int]:
+        return handle.geometry
+
+    def segments(self, handle, buckets=None):
+        return bucket_segments(handle.host_view(), buckets)
+
+    def expired_buckets(self, handle, now) -> np.ndarray | None:
+        if now is None or handle.h_exps is None:
+            return None
+        return handle.expired_buckets(now)
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +589,8 @@ class DurableFliX:
 
     @property
     def state(self):
-        """The engine's current FliXState view."""
+        """The engine's current FliXState view (for a tiered engine, the
+        whole state materialized on the device: no durable path reads it)."""
         return self.engine.flix(self.handle)
 
     @property

@@ -18,7 +18,9 @@ individual bucket segments.
 
 Canonicalization runs on the state's device: the per-row sort, the gathers
 and the live mask are torch, and only the live triples and the segment
-lengths are copied to the host.  Framing, checksums and parsing are numpy.
+lengths are copied to the host (from a state on the CPU, such as a tiered
+index's host view, nothing is copied).  Framing, checksums and parsing
+are numpy.
 """
 
 from __future__ import annotations
@@ -65,7 +67,10 @@ def bucket_segments(state: FliXState, buckets=None):
     (little-endian int32).  A state without an expiry plane yields an
     all-``NO_EXPIRY`` ``seg_exps``.  ``buckets=None`` selects every bucket
     in fence order; a dirty list selects those rows on the device first, so
-    an incremental snapshot copies O(churn) to the host.
+    an incremental snapshot copies O(churn) to the host.  The work runs
+    where the state lives: a tiered index's host view
+    (``core.residency.TieredFliX.host_view()``, a state on the CPU) is
+    canonicalized on the host with no device transfer.
 
     Chain order (I1 + I2) is ascending apart from interior EMPTY padding,
     so one stable sort of each row canonicalizes it: EMPTY (int32 max)

@@ -1,6 +1,7 @@
 """Structural invariant checker for FliXState (port of
-``repro/core/invariants.py``, I1–I5 — see ``core/state.py`` — and I6, the
-expiry liveness of ``core/expiry.py``).
+``repro/core/invariants.py``, I1–I5 — see ``core/state.py`` — I6, the
+expiry liveness of ``core/expiry.py``, and I7, the tiered residency of
+``core/residency.py``).
 
 Host-side numpy.  The reference loops over buckets in Python; this form is
 vectorised over the whole state, so it checks a 2^20-bucket state in
@@ -74,6 +75,47 @@ def _check_expiry(keys: np.ndarray, exps: np.ndarray, now: int | None) -> None:
                 f"{keys[leaked][:8].tolist()} expired at {exps[leaked][:8].tolist()} "
                 f"<= now={int(now)})"
             )
+
+
+def check_tiered_invariants(tiered, now: int | None = None) -> None:
+    """Assert I7 for a ``core.residency.TieredFliX``.
+
+    I7: every live row is reachable in exactly one tier — resident buckets
+    are authoritative on the device, all others in the host mirror — and
+    the synced host view satisfies I1–I6; the device tier holds at most
+    ``max(budget, one bucket)`` bytes.  Also pins the bookkeeping the
+    engine's correctness rests on: sorted, unique, in-range resident ids,
+    packed fences equal to the full ones (the last forced to
+    ``MAX_VALID``), and fresh per-bucket metadata.
+    """
+    from repro_torch.core.expiry import bucket_min_exp
+
+    nb = tiered.num_buckets
+    ids = np.asarray(tiered.resident_ids)
+    assert len(ids) < 2 or (np.diff(ids) > 0).all(), "I7: resident_ids not sorted/unique"
+    if len(ids):
+        assert ids[0] >= 0 and ids[-1] < nb, "I7: resident id out of range"
+    packed = tiered._packed
+    if packed is None:
+        assert len(ids) == 0, "I7: resident ids without a packed state"
+    else:
+        assert packed.num_buckets == len(ids), "I7: packed bucket count != resident id count"
+        pm = packed.mkba.cpu().numpy()
+        assert (pm[:-1] == np.asarray(tiered.h_mkba)[ids[:-1]]).all(), (
+            "I7: packed fences diverge from the full fence array"
+        )
+        assert pm[-1] == MAX_VALID, "I7: packed mkba not MAX_VALID-terminated"
+    if tiered.budget_bytes is not None:
+        cap = max(int(tiered.budget_bytes), tiered.bucket_bytes)
+        assert tiered.memory_bytes_resident() <= cap, (
+            f"I7: resident bytes {tiered.memory_bytes_resident()} > budget {cap}"
+        )
+    view = tiered.host_view()  # sync() makes the mirror authoritative
+    check_invariants(view, now=now)
+    live = view.node_count.sum(dim=1).numpy()
+    assert (live == np.asarray(tiered.h_live)).all(), "I7: stale live metadata"
+    min_exp = bucket_min_exp(view).numpy()
+    assert (min_exp == np.asarray(tiered.h_min_exp)).all(), "I7: stale min-expiry metadata"
 
 
 def check_range_results(ops, results, *, max_results: int) -> None:

@@ -147,6 +147,103 @@ def unsort(sorted_result: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return sorted_result[perm]
 
 
+def touched_buckets(mkba_host, tag, key, val, *, live=None, min_exp=None, now=None):
+    """Host prefetch pre-pass: which buckets a sorted batch can touch.
+
+    The tiered engine (``core.residency``) promotes exactly the buckets
+    whose bytes the executors may consult, so that running the unchanged
+    executors on the packed resident subset is bucket for bucket what they
+    do on the full state.  The routing is the engine's own:
+    ``min(searchsorted(mkba, q), nb - 1)``.
+
+    Per op type:
+      * INSERT / DELETE / POINT / EXPIRE — the op's bucket.
+      * RANGE — every bucket from ``b(lo)`` through ``b(hi)`` inclusive: the
+        rank arithmetic consults every bucket inside the interval.
+      * SUCCESSOR — ``b(q)`` plus the forward walk up to and including the
+        first bucket *guaranteed* non-empty after the batch's own updates
+        and expiry pass (an insert routed to it, or pre-batch rows that
+        survive), so that the packed fence rows' suffix scan agrees with
+        the full one.
+      * when ``now`` is given — every bucket whose minimum live deadline is
+        ≤ ``now``: the expiry pre-pass reclaims rows there.
+
+    ``live`` / ``min_exp`` are per-bucket host metadata ([nb]: live row
+    count; minimum live deadline, ``NO_EXPIRY`` without TTLs), both
+    optional and degrading conservatively: without ``live`` only inserts
+    guarantee non-emptiness; with ``now`` but no ``min_exp`` no pre-batch
+    row is safe.  All inputs are host numpy arrays; returns an [nb] bool
+    mask.
+    """
+    mkba = np.asarray(mkba_host)
+    nb = mkba.shape[0]
+    tag = np.asarray(tag)
+    key = np.asarray(key)
+    val = np.asarray(val)
+    touched = np.zeros(nb, dtype=bool)
+
+    def b_of(q):
+        return np.minimum(np.searchsorted(mkba, q, side="left"), nb - 1)
+
+    def cover(lo_b, hi_b):
+        """Mark every bucket of the inclusive intervals ``[lo_b, hi_b]``."""
+        d = np.zeros(nb + 1, np.int64)
+        np.add.at(d, lo_b, 1)
+        np.add.at(d, hi_b + 1, -1)
+        return np.cumsum(d[:nb]) > 0
+
+    simple = (
+        (tag == OP_INSERT) | (tag == OP_DELETE) | (tag == OP_POINT) | (tag == OP_EXPIRE)
+    )
+    if simple.any():
+        touched[b_of(key[simple])] = True
+
+    is_range = tag == OP_RANGE
+    if is_range.any():
+        lo_b = b_of(key[is_range])
+        hi_b = b_of(val[is_range])
+        touched[lo_b] = True
+        touched[hi_b] = True
+        ok = lo_b <= hi_b
+        if ok.any():
+            touched |= cover(lo_b[ok], hi_b[ok])
+
+    is_succ = tag == OP_SUCCESSOR
+    if is_succ.any():
+        n_ins = np.zeros(nb, np.int64)
+        upd_ins = ((tag == OP_INSERT) | (tag == OP_EXPIRE)) & (key != EMPTY)
+        if upd_ins.any():
+            np.add.at(n_ins, b_of(key[upd_ins]), 1)
+        guaranteed = n_ins > 0
+        if live is not None:
+            n_del = np.zeros(nb, np.int64)
+            upd_del = (tag == OP_DELETE) & (key != EMPTY)
+            if upd_del.any():
+                np.add.at(n_del, b_of(key[upd_del]), 1)
+            survives = np.asarray(live).astype(np.int64) - n_del > 0
+            if now is not None:
+                if min_exp is None:
+                    survives &= False  # no deadline metadata: nothing is safe
+                else:
+                    survives &= np.asarray(min_exp).astype(np.int64) > int(now)
+            guaranteed |= survives
+        b = b_of(key[is_succ])
+        touched[b] = True
+        # next_g[j] = first guaranteed bucket ≥ j (nb if none)
+        gidx = np.where(guaranteed, np.arange(nb, dtype=np.int64), nb)
+        next_g = np.append(np.minimum.accumulate(gidx[::-1])[::-1], nb)
+        starts = b + 1
+        inb = starts < nb
+        if inb.any():
+            s = starts[inb]
+            t = next_g[s]
+            touched |= cover(s, np.where(t < nb, t, nb - 1))  # to the end if none
+
+    if now is not None and min_exp is not None:
+        touched |= np.asarray(min_exp).astype(np.int64) <= int(now)
+    return touched
+
+
 def _compact_by_mask(
     keys: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor | None = None
 ):

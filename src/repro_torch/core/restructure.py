@@ -2,7 +2,10 @@
 
 Flattens every bucket's chain, and re-emits a uniform half-full structure
 aligned to the current key distribution: one global sort plus the standard
-build.  The host only chooses the new static geometry.
+build.  The host only chooses the new static geometry: the build's own
+(``restructure_auto``), one sized for an overflowing batch
+(``restructure_grow``) or the smallest for the live set
+(``restructure_shrink``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,41 @@ def restructure_auto(state: FliXState, *, fill: float = 0.5) -> FliXState:
     return restructure(
         state, num_buckets=nb, nodes_per_bucket=npb, node_size=ns, fill=fill
     )
+
+
+def restructure_shrink(
+    state: FliXState,
+    *,
+    fill: float = 0.5,
+    nodes_per_bucket: int | None = None,
+) -> tuple[FliXState, int]:
+    """Compact to the smallest geometry for the current live set, reclaiming
+    memory (paper §3.5).
+
+    ``restructure_auto`` keeps the old ``nodes_per_bucket``, so a structure
+    that once grew wide never gives chain capacity back.  Shrink narrows
+    both axes: ``nb = ceil(live / p)`` buckets at ``p = ns * fill`` keys
+    each, and the smallest chain depth whose capacity is still ≥ 2p (the
+    headroom ``restructure_grow`` relies on), at least 2.
+
+    Returns ``(new_state, reclaimed_bytes)``: the drop in allocated bytes,
+    0 when the structure could not shrink.
+    """
+    live = int(state.live_keys())
+    p = max(1, int(state.node_size * fill))
+    nb = max(1, math.ceil(live / p))
+    if nodes_per_bucket is None:
+        npb = max(2, math.ceil(2 * p / state.node_size))
+    else:
+        npb = nodes_per_bucket
+    new = restructure(
+        state,
+        num_buckets=nb,
+        nodes_per_bucket=npb,
+        node_size=state.node_size,
+        fill=fill,
+    )
+    return new, max(0, state.memory_bytes() - new.memory_bytes())
 
 
 def restructure_grow(

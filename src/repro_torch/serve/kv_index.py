@@ -28,9 +28,15 @@ every update step is logged (fsynced) before it runs and snapshotted every
 holds a durable history recovers it instead of starting empty.  Pure-read
 steps never touch the log.
 
-This port serves one device.  The reference's tiered residency
-(``device_budget``) and sharding (``shards``) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+``device_budget`` (bytes) switches the engine to tiered residency
+(``core.residency.TieredFliX``): the index lives in host memory and may
+grow far beyond the budget, each step promotes the buckets its batch
+touches onto the device and demotes back under the budget after the
+commit.  Results and durable bytes are those of the single-tier index;
+step stats also carry the residency counters.
+
+This port serves one device: the reference's sharding (``shards``)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from repro_torch.core import (
     make_ops,
     unsort,
 )
+from repro_torch.core.residency import TieredFliX
 from repro_torch.core.state import resolve_device
 
 PAGE_BITS = 12  # up to 4096 pages per sequence
@@ -124,6 +131,13 @@ class KVPageIndex:
     boundary and exists for the negative crash tests), snapshots every
     ``snapshot_every`` steps, and recovers a history already in the
     directory.  ``crash_hook`` receives the durable layer's named events.
+
+    ``device_budget`` (bytes) makes the index tiered: the local state is a
+    ``TieredFliX`` (with durability, behind a ``TieredEngine``), read-only
+    steps run it with ``commit=False`` and update steps with
+    ``commit=True``, its own grow and replay covering an overflow.  It
+    refuses ``snapshot_window``: pinned versions need immutable states,
+    and the tiered handle mutates.
     """
 
     def __init__(
@@ -145,10 +159,10 @@ class KVPageIndex:
             raise NotImplementedError(
                 "shards: the sharded engine is not ported yet (ROADMAP Queue 1 item 11)"
             )
-        if device_budget is not None:
-            raise NotImplementedError(
-                "device_budget: tiered residency is not ported yet "
-                "(ROADMAP Queue 1 item 10)"
+        if device_budget is not None and snapshot_window:
+            raise ValueError(
+                "device_budget and snapshot_window are incompatible: "
+                "pinned versions need immutable functional states"
             )
         self.config = config if config is not None else ExecConfig()
         self.device = resolve_device(device)
@@ -167,15 +181,21 @@ class KVPageIndex:
             nodes_per_bucket=nodes_per_bucket,
             device=self.device,
         )
+        if device_budget is not None:
+            self.state = TieredFliX.from_state(self.state, budget_bytes=device_budget)
         if durability_dir is not None:
-            from repro_torch.checkpoint import DurableFliX, LocalEngine
+            from repro_torch.checkpoint import DurableFliX, LocalEngine, TieredEngine
 
-            engine = LocalEngine(
+            engine_kw = dict(
                 config=self.config,
                 node_size=node_size,
                 nodes_per_bucket=nodes_per_bucket,
                 device=self.device,
             )
+            if device_budget is not None:
+                engine = TieredEngine(budget_bytes=device_budget, **engine_kw)
+            else:
+                engine = LocalEngine(**engine_kw)
             kw = dict(
                 engine=engine,
                 snapshot_every=snapshot_every,
@@ -327,12 +347,21 @@ class KVPageIndex:
             # reference engine (the fused pass would rewrite every stripe)
             cfg = self.config.replace(impl="reference", max_results=range_budget)
             state = self.state if pinned is None else pinned
-            _, results, stats = apply_ops(state, ops, config=cfg, now=now)
+            if isinstance(state, TieredFliX):
+                # pages buckets in and out, but keeps the logical content
+                results, stats, _ = state.apply(ops, config=cfg, now=now, commit=False)
+            else:
+                _, results, stats = apply_ops(state, ops, config=cfg, now=now)
         elif self._durable is not None:
             # WAL-ahead, with the engine's own restructure and retry
             cfg = self.config.replace(max_results=range_budget)
             results, stats = self._durable.apply(ops, config=cfg, meta=meta, now=now)
             self._commit(self._durable.handle, now)
+        elif isinstance(self.state, TieredFliX):
+            # the tiered handle mutates in place and grows and replays itself
+            cfg = self.config.replace(max_results=range_budget)
+            results, stats, _ = self.state.apply(ops, config=cfg, now=now)
+            self._commit(self.state, now)
         elif n_alloc == 0 and n_getset == 0:
             # only inserts can overflow: free steps skip apply_ops_safe
             cfg = self.config.replace(max_results=range_budget)
@@ -440,6 +469,15 @@ class KVPageIndex:
     def retained_versions(self) -> list[int]:
         """Versions currently answerable via ``step(as_of=...)``."""
         return sorted(self._pins)
+
+    # ---- residency -------------------------------------------------------
+    @property
+    def resident_bytes(self) -> int | None:
+        """Device-tier footprint of a tiered index (None single-tier: the
+        whole index is on the device)."""
+        if isinstance(self.state, TieredFliX):
+            return self.state.memory_bytes_resident()
+        return None
 
     # ---- durability / health -------------------------------------------
     @property

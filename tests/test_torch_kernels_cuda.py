@@ -1300,6 +1300,60 @@ def test_range_kernel_edge_cases_on_card(cuda, ns, npb, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+def test_tiered_packed_fused_pass_on_card(cuda, width):
+    """A tiered index under a one-bucket budget runs the fused path's
+    kernels on a packed working set of ``width`` buckets (a SUCCESSOR's walk
+    adds the next bucket) and equals the same index on the CPU: results,
+    stats, residency and the synced mirror."""
+    from repro_torch.core.residency import TieredFliX
+
+    keys = np.arange(0, 1 << 14, 2, dtype=np.int32)  # 512 buckets of 16 keys
+    sides = {
+        dev: TieredFliX.from_state(
+            tcore.build(keys, keys // 2, node_size=32, nodes_per_bucket=16, device=dev),
+            budget_bytes=1,
+        )
+        for dev in (cuda, torch.device("cpu"))
+    }
+    # all in bucket 5 (keys 160..190): inserts, deletes, reads, a range
+    tags = [tcore.OP_INSERT] * 4 + [tcore.OP_DELETE] * 2 + [tcore.OP_POINT] * 4
+    k = [161, 163, 165, 167, 170, 172, 160, 161, 174, 189]
+    tags.append(tcore.OP_RANGE)
+    k.append(162)
+    if width == 2:
+        tags.append(tcore.OP_SUCCESSOR)  # past bucket 5's largest key
+        k.append(189)
+    v = [x * 3 for x in k]
+    v[10] = 186  # the range's hi
+    out = {}
+    for dev, tiered in sides.items():
+        ops_, _ = tcore.make_ops(np.array(tags, np.int32), np.array(k, np.int32),
+                                 np.array(v, np.int32), device=dev)
+        before = dict(LAUNCHES)
+        out[dev.type] = tiered.apply(ops_)
+        torch.cuda.synchronize()
+        ran = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+        assert tiered.last_timings["working_set"] == width
+        assert tiered.resident_ids.tolist() == [5]
+        if dev.type == "cuda":
+            for n in ("flix_apply_staged", "flix_fence_rows", "flix_apply_rank",
+                      "flix_apply_range"):
+                assert ran[n] >= 1, (n, ran)
+        tcore.check_tiered_invariants(tiered)
+    (gr, gs, _), (wr, ws, _) = out["cuda"], out["cpu"]
+    for key in wr:
+        assert torch.equal(gr[key].cpu(), wr[key]), key
+    for key in ws:
+        assert int(gs[key]) == int(ws[key]), key
+    got, want = sides[cuda].host_view(), sides[torch.device("cpu")].host_view()
+    for f in ("keys", "node_count", "node_max", "num_nodes", "mkba"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    live = want.keys != EMPTY
+    assert torch.equal(got.vals[live], want.vals[live])
+
+
+@pytest.mark.cuda
 def test_kv_index_on_card_equals_cpu(cuda):
     """A few serving steps (TTL, get-or-set, frees, ranges, a pinned read)
     on the card and on the CPU give the same results and state."""

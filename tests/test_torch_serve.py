@@ -186,9 +186,15 @@ def test_step_argument_checks():
     assert empty.slots.numel() == 0 and empty.range_out is None and empty.stats == {}
     with pytest.raises(TypeError):
         slots, range_out, stats = idx.step(lookups=([1], [0]))
-    for kw, item in ((dict(shards=2), "item 11"), (dict(device_budget=1 << 20), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            KVPageIndex(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        KVPageIndex(device="cpu", shards=2)
+    tiered = KVPageIndex(device="cpu", device_budget=1 << 20)
+    assert tiered.resident_bytes == 0  # nothing paged in before a step
+    tiered.allocate([1], [0], [5])
+    assert 0 < tiered.resident_bytes <= 1 << 20
+    assert tiered.lookup([1], [0]).tolist() == [5]
+    with pytest.raises(ValueError, match="snapshot_window"):
+        KVPageIndex(device="cpu", device_budget=1 << 20, snapshot_window=2)
     k = _key(torch.tensor([1, 2]), torch.tensor([3, 4]))
     assert k.tolist() == [(1 << PAGE_BITS) | 3, (2 << PAGE_BITS) | 4]
     assert [_next_pow2(n) for n in (1, 2, 3, 17)] == [1, 2, 4, 32]
