@@ -232,7 +232,40 @@ line, and no phase catches its own failure:
                 6th commit's ``wal.append.partial``; a cold reopen onto the
                 oracle's canonical bytes (host view) and I7; 2 more steps.
                 Cut: depth only (6 batches a sweep; 8 steps);
- 12. the kernels line, the card line, and the result line.
+ 12. sharded   — the sharded index (``repro_torch.core.distributed``), 4
+                shards on the one card.  First (3j, after 3i) 2 and 4 shards
+                of 2^14 keys from a 100,000-key space against ``apply_ops``
+                on one state of the union geometry, exactly (results, stats,
+                every shard's slice): tests/test_shard_engine.py's mixed
+                batch under both routings, an a2a batch at capacity 1 (its
+                overflow reported, shard_apply_ops_safe's capacity retries
+                counted), a 300-key burst that overflows the last shard and
+                regrows through ``shard_restructure``, TTL with and without
+                ``now``, a read-only and an all-NOP batch.  (12a) Phase 4's
+                build range-partitioned into 4 shards of 2^18 buckets beside
+                phase 4's single-device state; 4 batches of phase 4's mix
+                under "replicated", then the same 4 under "a2a" (chunks of
+                2^18, 2^17 rows a pair), through make_ops →
+                ``shard_apply_ops_safe`` → unsort, each held against
+                ``apply_ops_safe`` on the single state (results, stats,
+                every shard's slice), each launching the stripe kernel and
+                the fence rows once a shard and retrying nothing.  Printed
+                per batch: host ms (synced), a CUDA-event split into
+                routing, the RANGE counts phase, the shards' apply_ops and
+                the combine; per routing the median and MOps/s beside the
+                single-device path's.  (12b) Phase 6's content made durable
+                by a ``ShardEngine`` over 4 shards, opened by
+                ``KVPageIndex(shards=4, config=ExecConfig(routing="a2a"),
+                durability_dir=..., snapshot_every=4)``; 8 of phase 6's
+                steps (no pinned read), each against a single-device index
+                (StepResults; live pairs after every update step, read shard
+                by shard); a crash at the 6th commit's
+                ``wal.append.partial``; a reopen with ``shards=4`` onto the
+                oracle's canonical bytes; 2 more steps.  Printed: each
+                step's ms and its overhead over a sharded index without
+                durability, WAL bytes, a2a_retries, the recovery split.
+                Cut: depth only (4 batches a routing; 8 steps);
+ 13. the kernels line, the card line, and the result line.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -306,6 +339,13 @@ TIERED_SERVE = dict(steps=8, appends=1 << 11, lookups=1 << 14, getsets=1 << 9,
 TIERED_CRASH_COMMIT = 6  # phase 11b: the commit whose half-written record ends the run
 TIERED_AFTER = 2  # phase 11b: steps served after the recovery, the crashed one first
 TIERED_OPEN_SLACK = 64 << 20  # phase 11b: device bytes the cold open may allocate
+SHARDS = 4  # phase 12: shards of the sharded index, all on the one card
+SHARD_SMALL_KEYS = 1 << 14  # phase 3j: keys of the small sharded index
+SHARD_SMALL_SPACE = 100_000  # phase 3j: their key space (tests/test_shard_engine.py's)
+SHARD_BATCHES = 4  # phase 12a: batches of phase 4's mix a routing
+SHARD_SERVE_STEPS = 8  # phase 12b: phase 6's steps served, the pinned read left out
+SHARD_CRASH_COMMIT = 6  # phase 12b: the commit whose half-written record ends the run
+SHARD_AFTER = 2  # phase 12b: steps served after the recovery, the crashed one first
 RANGE_NARROW, RANGE_WIDE = 1 << 16, 1 << 12  # ranges of ~16 and ~256 keys
 RANGE_MAX_RESULTS = 1 << 20
 FENCE_BUCKETS = (1 << 20) + 3  # phase 3h: the main path's buckets, no multiple of a tile
@@ -3073,6 +3113,476 @@ def phase_tiered_durable(dev, smi):
     return launches
 
 
+SHARD_KERNELS = ("flix_apply_staged", "flix_fence_rows")
+
+
+def shard_slice(state, s: int, nb_s: int):
+    """Buckets ``[s * nb_s, (s + 1) * nb_s)`` of a single-device state: the
+    part of it that shard ``s`` holds."""
+    from repro_torch.core.state import FliXState
+
+    rows = slice(s * nb_s, (s + 1) * nb_s)
+    fields = {f: getattr(state, f)[rows] for f in
+              ("keys", "vals", "node_count", "node_max", "num_nodes", "mkba")}
+    exps = None if state.exps is None else state.exps[rows]
+    return FliXState(**fields, needs_restructure=state.needs_restructure, exps=exps)
+
+
+def check_sharded(label, got, want, *, same_geometry: bool = True):
+    """A sharded call (``(idx, results, stats)``) against ``apply_ops`` on
+    one state: results and the shared stats equal; at the same union
+    geometry every shard's slice equal to the state's (vals at live slots,
+    the expiry plane whole), else the live pairs equal."""
+    from repro_torch.checkpoint import canonical_state_bytes
+    from repro_torch.core import distributed as dist
+
+    gi, gr, gst = got
+    ws, wr, wst = want
+    for k in wr:
+        if not torch.equal(gr[k], wr[k]):
+            raise AssertionError(f"{label}: result {k} differs from the single-device engine")
+    for k in TIERED_SHARED_STATS + ("expired",):
+        if k in wst and int(gst[k]) != int(wst[k]):
+            raise AssertionError(f"{label}: stat {k}: {int(gst[k])} != {int(wst[k])}")
+    if not same_geometry:
+        if canonical_state_bytes(dist.shard_union(gi, ws.device)) != canonical_state_bytes(ws):
+            raise AssertionError(f"{label}: the live pairs differ from the single-device engine")
+        return
+    if gi.geometry != ws.geometry:
+        raise AssertionError(f"{label}: geometry {gi.geometry} != {ws.geometry}")
+    nb_s = gi.states[0].num_buckets
+    for s, st in enumerate(gi.states):
+        part = shard_slice(ws, s, nb_s)
+        check_same_state(f"{label}, shard {s}", st, part)
+        if (st.exps is None) != (part.exps is None) or (
+                part.exps is not None and not torch.equal(st.exps, part.exps)):
+            raise AssertionError(f"{label}, shard {s}: the expiry plane differs")
+
+
+def check_shard_launches(label, counts, n_shards: int, passes: int):
+    """A sharded update call launches the stripe kernel once a shard for
+    each pass (a plane, a replay), and the fence rows with it; nothing
+    else."""
+    want = {k: n_shards * passes for k in SHARD_KERNELS}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def shard_mixed_host(rng, keys, *, space=SHARD_SMALL_SPACE, n_ins=128, n_del=128, n_pt=384,
+                     n_sc=384, n_rg=64, span=2_000):
+    """``tests/test_shard_engine.py``'s ``_mixed_batch`` on the host: fresh
+    inserts, live deletes, points and successors over and past the key
+    space, RANGE ops wide enough to cross shard fences, and one RANGE over
+    the whole key space."""
+    from repro_torch import core
+
+    absent = np.setdiff1d(rng.integers(0, space + 20_000, 4096).astype(np.int32), keys)
+    n_ins = min(n_ins, absent.size)
+    los = rng.integers(0, space, n_rg - 1).astype(np.int32)
+    his = (los + rng.integers(1, span, n_rg - 1)).astype(np.int32)
+    tags = np.concatenate([np.full(n_ins, core.OP_INSERT), np.full(n_del, core.OP_DELETE),
+                           np.full(n_pt, core.OP_POINT), np.full(n_sc, core.OP_SUCCESSOR),
+                           np.full(n_rg, core.OP_RANGE)]).astype(np.int32)
+    bk = np.concatenate([absent[:n_ins], rng.choice(keys, n_del, replace=False),
+                         rng.integers(0, space + 20_000, n_pt + n_sc), los, [0]])
+    bv = np.concatenate([np.arange(n_ins) + 7_000_000, np.zeros(n_del + n_pt + n_sc),
+                         his, [space + 20_000]])
+    return tags, bk.astype(np.int32), bv.astype(np.int32)
+
+
+def phase_shard_small(dev):
+    """Phase 3j: the sharded engine (``repro_torch.core.distributed``) on the
+    card, exactly, at 2 and 4 shards on one card: ``SHARD_SMALL_KEYS`` keys
+    from a ``SHARD_SMALL_SPACE`` key space (16-key nodes, 8 a bucket), each
+    call held against ``apply_ops`` on one state of the union geometry on
+    the card (the union of the fresh index): the mixed batch of
+    ``tests/test_shard_engine.py`` under both routings; an a2a batch at
+    capacity 1, its overflow reported, then through shard_apply_ops_safe with
+    its capacity retries counted; a clustered insert burst that overflows a
+    shard (300 keys past the key space, into the last shard's last bucket)
+    and regrows through ``shard_restructure`` (held against
+    ``apply_ops_safe``, which regrows its own way: results and live pairs);
+    TTL with and without ``now``; a read-only batch and an all-NOP one."""
+    from repro_torch import core
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(SEED + 13)
+    keys = np.sort(rng.choice(SHARD_SMALL_SPACE, SHARD_SMALL_KEYS, replace=False)).astype(np.int32)
+    vals = rng.integers(0, 1 << 30, keys.size).astype(np.int32)
+    exps = np.where(rng.random(keys.size) < 0.25, rng.integers(1, 2000, keys.size),
+                    int(core.NO_EXPIRY)).astype(np.int32)
+    geometry = dict(node_size=16, nodes_per_bucket=8)
+    k_t, v_t, e_t = (torch.from_numpy(a).to(dev) for a in (keys, vals, exps))
+    n_calls = 0
+
+    def run(label, idx, mesh, ops, cfg, *, safe=False, planes=1, launches=True, **kw):
+        nonlocal n_calls
+        torch.cuda.synchronize()
+        reset_launches()
+        fn = dist.shard_apply_ops_safe if safe else dist.shard_apply_ops
+        got = fn(idx, ops, mesh, config=cfg, **kw)
+        counts = {k: LAUNCHES[k] for k in LAUNCHES}
+        if launches:
+            replays = got[2].get("a2a_retries", 0) + got[2].get("restructure_retries", 0)
+            check_shard_launches(label, counts, mesh.size, planes * (1 + replays))
+        elif any(counts.values()):
+            raise AssertionError(f"{label}: a read-only call launched {counts}")
+        n_calls += 1
+        return got
+
+    for S in (2, 4):
+        mesh = dist.make_shard_mesh(S, [dev] * S)
+        idx = dist.shard_build(k_t, v_t, mesh, **geometry)
+        single = dist.shard_union(idx, dev)
+        tags, bk, bv = shard_mixed_host(rng, keys)
+        ops = core.make_ops(tags, bk, bv, pad_to=2048, device=dev)[0]
+        want = core.apply_ops(single, ops, config=core.ExecConfig(max_results=512))
+        for routing in ("replicated", "a2a"):
+            cfg = core.ExecConfig(routing=routing, max_results=512)
+            got = run(f"3j S={S} {routing}", idx, mesh, ops, cfg)
+            check_sharded(f"3j S={S} {routing}: mixed batch", got, want)
+        # a2a at capacity 1: the overflow is reported; shard_apply_ops_safe
+        # doubles its way to the chunk and lands on the same answers
+        cfg = core.ExecConfig(routing="a2a", max_results=512, capacity=1)
+        _, _, st = run(f"3j S={S} capacity 1", idx, mesh, ops, cfg)
+        overflow = int(st["a2a_overflow"])
+        got = run(f"3j S={S} capacity 1 (safe)", idx, mesh, ops, cfg, safe=True)
+        st = got[2]
+        if not (overflow > 0 and st["a2a_retries"] >= 1 and st["a2a_overflow_dropped"] >= overflow
+                and int(st["a2a_overflow"]) == 0 and st["restructure_retries"] == 0):
+            raise AssertionError(f"3j S={S}: capacity 1: overflow {overflow}, stats {st}")
+        check_sharded(f"3j S={S}: a2a after {st['a2a_retries']} capacity retries", got, want)
+        log(f"  3j S={S}: the mixed batch equal under both routings; a2a at capacity 1 dropped "
+            f"{overflow} rows, shard_apply_ops_safe retried {st['a2a_retries']} times "
+            f"({st['a2a_overflow_dropped']} rows dropped in all) to equal answers")
+        # a clustered burst: 300 fresh keys past the key space, all in the
+        # last shard's last bucket (128 slots), which overflows
+        fresh = np.arange(SHARD_SMALL_SPACE, SHARD_SMALL_SPACE + 300, dtype=np.int32)
+        bops = core.make_ops(np.full(fresh.size, core.OP_INSERT, np.int32), fresh, fresh * 3,
+                             device=dev)[0]
+        want_b = core.apply_ops_safe(single, bops, config=core.ExecConfig())
+        for routing in ("replicated", "a2a"):
+            got = run(f"3j S={S} burst {routing}", idx, mesh, bops,
+                      core.ExecConfig(routing=routing), safe=True)
+            if got[2]["restructure_retries"] != 1 or want_b[2]["restructure_retries"] != 1:
+                raise AssertionError(f"3j S={S}: the burst did not regrow ({got[2]})")
+            check_sharded(f"3j S={S} {routing}: burst", got, want_b, same_geometry=False)
+            core.check_invariants(dist.shard_union(got[0], dev))
+        log(f"  3j S={S}: a {fresh.size}-key burst regrew {idx.geometry} -> "
+            f"{got[0].geometry} by shard_restructure, fences {got[0].part_fences.tolist()}")
+        # read-only and all-NOP batches: the reference engine, no launch
+        tags, bk, bv = shard_mixed_host(rng, keys, n_ins=0, n_del=0, n_pt=512, n_sc=512,
+                                        n_rg=32)
+        rops = core.make_ops(tags, bk, bv, pad_to=1088, device=dev)[0]
+        want_r = core.apply_ops(single, rops, config=core.ExecConfig(max_results=256))
+        nops = core.make_ops(np.zeros(0, np.int32), np.zeros(0, np.int32), pad_to=64,
+                             device=dev)[0]
+        want_n = core.apply_ops(single, nops, config=core.ExecConfig())
+        for routing in ("replicated", "a2a"):
+            cfg = core.ExecConfig(routing=routing, max_results=256)
+            check_sharded(f"3j S={S} {routing}: read-only",
+                          run("3j read-only", idx, mesh, rops, cfg, launches=False), want_r)
+            check_sharded(f"3j S={S} {routing}: all-NOP",
+                          run("3j all-NOP", idx, mesh, nops, cfg.replace(max_results=128),
+                              launches=False), want_n)
+        # TTL: the plane built with the index, a pass at now and none
+        tidx = dist.shard_build(k_t, v_t, mesh, **geometry, sorted_exps=e_t)
+        tsingle = dist.shard_union(tidx, dev)
+        now = 1000
+        absent = np.setdiff1d(np.arange(0, SHARD_SMALL_SPACE, 3, dtype=np.int32), keys)
+        gs_hit = rng.choice(keys, 48, replace=False)
+        ttags = np.concatenate([np.full(96, core.OP_INSERT), np.full(96, core.OP_EXPIRE),
+                                np.full(256, core.OP_POINT), np.full(128, core.OP_SUCCESSOR),
+                                np.full(16, core.OP_RANGE)]).astype(np.int32)
+        tk = np.concatenate([absent[:96], absent[96:144], gs_hit,
+                             rng.integers(0, SHARD_SMALL_SPACE, 256 + 128 + 16)]).astype(np.int32)
+        tv = np.concatenate([np.arange(96) + 7_000_000, np.arange(96) + 8_000_000,
+                             np.zeros(256 + 128), tk[-16:] + 2_000]).astype(np.int32)
+        te = np.concatenate([now + rng.integers(-5, 200, 96), now + rng.integers(1, 200, 96),
+                             np.full(256 + 128 + 16, int(core.NO_EXPIRY))]).astype(np.int32)
+        tops = core.make_ops(ttags, tk, tv, exps=te, pad_to=1024, device=dev)[0]
+        expired = None
+        for clock in (now, None):
+            want_t = core.apply_ops(tsingle, tops, config=core.ExecConfig(max_results=512),
+                                    now=clock)
+            for routing in ("replicated", "a2a"):
+                cfg = core.ExecConfig(routing=routing, max_results=512)
+                got = run(f"3j S={S} TTL {routing}", tidx, mesh, tops, cfg, planes=2, now=clock)
+                check_sharded(f"3j S={S} {routing}: TTL now={clock}", got, want_t)
+            if clock is not None:
+                expired = int(want_t[2]["expired"])
+                if not expired:
+                    raise AssertionError("3j: the expiry pass reclaimed nothing")
+        log(f"  3j S={S}: read-only, all-NOP and TTL batches equal (now={now}: {expired} rows "
+            f"expired; no clock)")
+    log(f"  3j: {n_calls} sharded calls, each equal to apply_ops on the union geometry")
+
+
+def span_split(spans) -> dict:
+    """Milliseconds of each span label over one call's marks (CUDA events on
+    one card: each mark closes the span since the one before it)."""
+    out = {"route": 0.0, "range": 0.0, "apply": 0.0, "combine": 0.0}
+    for (_, a), (label, b) in zip(spans, spans[1:]):
+        out[label] += a.elapsed_time(b)
+    return out
+
+
+def phase_shard(dev, smi):
+    """Phase 12a: the sharded engine at full width.  Phase 4's build (the
+    same seed: 2^24 uniform keys from a 2^27 space, 32-key nodes, 16 a
+    bucket) range-partitioned by ``shard_build`` into ``SHARDS`` shards of
+    2^18 buckets on the card, beside phase 4's single-device state; the
+    same ``SHARD_BATCHES`` batches of phase 4's mix run first under
+    ``"replicated"``, then under ``"a2a"`` (chunks of 2^18, the default
+    capacity of 2^17 a pair), each chain from the fresh index, through
+    make_ops → ``shard_apply_ops_safe`` → unsort.  Every batch is held
+    against make_ops → ``apply_ops_safe`` → unsort on the single state
+    (results, stats, every shard's slice), and must launch the stripe
+    kernel and the fence rows once a shard for each attempt: a globally
+    sorted batch cut into chunks sends a chunk's rows to one or two shards,
+    past the 2^17 rows a pair, so ``shard_apply_ops_safe`` replays it at the
+    chunk size (its ``a2a_retries``, printed)."""
+    from repro_torch import core
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    traffic = Traffic(FULL_SPACE, FULL_KEYS, gen)
+    keys, vals = traffic.initial()
+    mesh = dist.make_shard_mesh(SHARDS, [dev] * SHARDS)
+    idx0, shard_ms = host_ms(lambda: dist.shard_build(keys, vals, mesh))
+    single0, build_ms = host_ms(lambda: core.build(keys, vals, device=dev))
+    del keys, vals
+    if idx0.geometry != single0.geometry:
+        raise AssertionError(f"phase 12a: {idx0.geometry} != {single0.geometry}")
+    log(f"phase 12a: {SHARDS} shards of {idx0.states[0].num_buckets} buckets on {dev} "
+        f"(union {idx0.geometry}, {dist.shard_memory_bytes(idx0) / 1e9:.3f} GB), shard_build "
+        f"{shard_ms:.1f} ms, the single-device build {build_ms:.1f} ms ({smi})")
+    batches = [traffic.mixed(FULL_OPS) for _ in range(SHARD_BATCHES)]
+    launches = {k: 0 for k in SHARD_KERNELS}
+    summary = {}
+    for routing in ("replicated", "a2a"):
+        cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS, routing=routing)
+        idx, single = idx0, single0
+        e2e, single_e2e = [], []
+        for i, (tags, bkeys, bvals) in enumerate(batches):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            ops, perm = core.make_ops(tags, bkeys, bvals, device=dev)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist.SPANS = [(None, start)]
+            try:
+                new_idx, res, stats = dist.shard_apply_ops_safe(
+                    idx, ops, mesh, config=cfg, has_updates=True, has_ranges=True)
+                value = core.unsort(res["value"], perm)
+                torch.cuda.synchronize()
+                spans = dist.SPANS
+            finally:
+                dist.SPANS = None
+            e2e.append((time.perf_counter() - t0) * 1e3)
+            counts = {k: LAUNCHES[k] for k in LAUNCHES}
+            # a capacity replay runs every shard's pass again
+            check_shard_launches(f"12a {routing} batch {i}", counts, SHARDS,
+                                 1 + stats["a2a_retries"])
+            for k in launches:
+                launches[k] += counts[k]
+            if stats["restructure_retries"] or int(stats["a2a_overflow"]):
+                raise AssertionError(f"12a {routing} batch {i}: regrew or dropped ({stats})")
+            split = span_split(spans)
+            del spans
+
+            def single_batch():
+                sops, sperm = core.make_ops(tags, bkeys, bvals, device=dev)
+                out = core.apply_ops_safe(single, sops, config=cfg)
+                return out, core.unsort(out[1]["value"], sperm)
+
+            (want, want_value), ms = host_ms(single_batch)
+            single_e2e.append(ms)
+            check_sharded(f"12a {routing} batch {i}", (new_idx, res, stats), want)
+            if not torch.equal(value, want_value):
+                raise AssertionError(f"12a {routing} batch {i}: unsorted values differ")
+            log(f"  {routing} batch {i}: {e2e[-1]:.3f} ms ({FULL_OPS / e2e[-1] / 1e3:.3f} "
+                f"MOps/s; single-device {ms:.3f} ms); by CUDA events: route "
+                f"{split['route']:.3f}, RANGE counts {split['range']:.3f}, apply_ops over the "
+                f"shards {split['apply']:.3f}, combine {split['combine']:.3f} ms; launches "
+                f"{ {k: counts[k] for k in SHARD_KERNELS} }; a2a_retries "
+                f"{stats['a2a_retries']} (rows dropped {stats['a2a_overflow_dropped']}); "
+                f"inserted {int(stats['inserted'])} deleted {int(stats['deleted'])} "
+                f"range_truncated {int(stats['range_truncated'])}")
+            idx, single = new_idx, want[0]
+            del want, res, new_idx
+        summary[routing] = (median(e2e), median(single_e2e))
+        del idx, single
+    for routing, (m, s) in summary.items():
+        log(f"  {routing}: median {m:.3f} ms a batch, {FULL_OPS / m / 1e3:.3f} MOps/s; "
+            f"single-device median {s:.3f} ms, {FULL_OPS / s / 1e3:.3f} MOps/s ({smi})")
+    log(f"  launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_shard_durable(dev, smi):
+    """Phase 12b: durable sharded serving.  ``serve_build``'s live pairs
+    range-partitioned into ``SHARDS`` shards on the card and made durable
+    by ``DurableFliX.create`` with a ``ShardEngine``, in a temporary
+    directory; opened by ``KVPageIndex(shards=SHARDS, device=..., config=
+    ExecConfig(routing="a2a"), durability_dir=..., snapshot_every=4)``;
+    ``SHARD_SERVE_STEPS`` of phase 6's steps (no pinned read), each held
+    against a single-device index fed the same steps (StepResults; after
+    every update step the live pairs, read shard by shard through the
+    engine's segments) and timed beside the same step on a sharded index
+    without durability; a crash at the ``SHARD_CRASH_COMMIT``-th commit's
+    ``wal.append.partial``; a reopen with ``shards=SHARDS`` onto the
+    single-device oracle's canonical bytes; ``SHARD_AFTER`` more steps."""
+    import tempfile
+
+    from repro_torch import core
+    from repro_torch.checkpoint import DurableFliX, ShardEngine, canonical_state_bytes
+    from repro_torch.checkpoint.serialize import bucket_segments, pairs_to_bytes
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import KVPageIndex
+
+    torch.cuda.reset_peak_memory_stats()
+    geometry = dict(node_size=32, nodes_per_bucket=16)
+    cfg = core.ExecConfig(routing="a2a")
+    mesh = dist.make_shard_mesh(SHARDS, [dev] * SHARDS)
+    launches = {k: 0 for k in SHARD_KERNELS}
+    with tempfile.TemporaryDirectory(prefix="flix-sharded-") as tmp:
+        d = Path(tmp) / "index"
+        built = serve_build(dev)
+        want_create = canonical_state_bytes(built)
+        _, sk, sv, _ = bucket_segments(built)
+        handle, shard_ms = host_ms(lambda: dist.shard_build(
+            torch.from_numpy(sk).to(dev), torch.from_numpy(sv).to(dev), mesh, **geometry))
+        engine = ShardEngine(mesh, config=cfg, **geometry)
+        dur, create_ms = host_ms(lambda: DurableFliX.create(d, handle, engine=engine))
+        dur.close()
+        del handle, dur, sk, sv
+        log(f"phase 12b: {len(want_create)} canonical bytes range-partitioned into {SHARDS} "
+            f"shards on {dev} (shard_build {shard_ms:.1f} ms) and made durable by a "
+            f"ShardEngine in {create_ms / 1e3:.3f} s")
+        index_kw = dict(**geometry, shards=SHARDS, device=dev, config=cfg, durability_dir=d,
+                        snapshot_every=DURABLE_SNAPSHOT_EVERY)
+
+        def live_bytes(index):
+            _, k, v, e = index._durable.engine.segments(index._durable.handle)
+            return pairs_to_bytes(k, v, e)
+
+        hook = CrashAt("wal.append.partial", SHARD_CRASH_COMMIT)
+        idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw, crash_hook=hook))
+        log(recovery_line("KVPageIndex(shards=4, durability_dir=...)", idx._durable, open_ms,
+                          smi))
+        if live_bytes(idx) != want_create:
+            raise AssertionError("phase 12b: the opened index's live pairs differ")
+        log(f"  opened: {idx.state.n_shards} shards, union geometry {idx.state.geometry}")
+        oracle = KVPageIndex(**geometry, device=dev)
+        oracle.state = built
+        del built
+        # without durability: the same engine work, a2a at the chunk size
+        # as the durable engine runs it (shard_apply_ops_safe's default capacity
+        # would replay a sorted step's chunks)
+        plain = KVPageIndex(**geometry, shards=SHARDS, device=dev,
+                            config=cfg.replace(capacity=FULL_OPS))
+        traffic = ServeTraffic(SEED + 4)  # phase 6's steps
+        commits, a2a_retries = [], 0
+
+        def serve(i, step, label):
+            nonlocal a2a_retries
+            kw, read_only = step["kw"], step["read_only"]
+            pre = idx.state
+            torch.cuda.synchronize()
+            reset_launches()
+            got, ms = host_ms(lambda: idx.step(**kw))
+            counts = {k: LAUNCHES[k] for k in LAUNCHES}
+            want = oracle.step(**kw)
+            if not torch.equal(got.slots, want.slots):
+                raise AssertionError(f"{label} {i}: slots differ from the single-device index")
+            for k in want.range_out or {}:
+                if not torch.equal(got.range_out[k], want.range_out[k]):
+                    raise AssertionError(f"{label} {i}: range {k} differs")
+            for k in TIERED_SHARED_STATS + ("expired",):
+                if k in want.stats and int(got.stats[k]) != int(want.stats[k]):
+                    raise AssertionError(f"{label} {i}: stat {k} differs")
+            traffic.check(step, got)
+            a2a_retries += int(got.stats.get("a2a_retries", 0))
+            line = f"  {label} {i} ({'read' if read_only else 'update'}): {ms:.3f} ms"
+            if read_only:
+                if any(counts.values()):
+                    raise AssertionError(f"{label} {i}: a read-only step launched {counts}")
+                log(line + f"; a2a_overflow {int(got.stats['a2a_overflow'])}")
+                return
+            check_shard_launches(f"{label} {i}", counts, SHARDS, 2)  # value and expiry planes
+            assert int(got.stats["restructure_retries"]) == 0, got.stats
+            for k in launches:
+                launches[k] += counts[k]
+            plain.state = pre
+            _, plain_ms = host_ms(lambda: plain.step(**kw))
+            plain.state = None
+            wal = idx._durable.last_append
+            commits.append(dict(ms=ms, plain_ms=plain_ms, **wal))
+            same, canon_ms = host_ms(
+                lambda: live_bytes(idx) == canonical_state_bytes(oracle.state))
+            if not same:
+                raise AssertionError(f"{label} {i}: live pairs differ from the single-device "
+                                     "index")
+            log(line + f", without durability {plain_ms:.3f} ms (overhead {ms - plain_ms:.3f} "
+                f"ms); durable seq {idx.durable_seq}, WAL record {wal['bytes']} B, append + "
+                f"fsync {wal['append_fsync_s'] * 1e3:.3f} ms; a2a_overflow "
+                f"{int(got.stats['a2a_overflow'])}; live pairs equal ({canon_ms:.0f} ms); "
+                f"launches { {k: counts[k] for k in SHARD_KERNELS} }")
+            if idx.durable_seq % DURABLE_SNAPSHOT_EVERY == 0:
+                log(snapshot_line(f"seq {idx.durable_seq}", idx._durable.last_timings, smi,
+                                  where="shard by shard on the card"))
+
+        crash_step, i = None, 0
+        while crash_step is None and i < SHARD_SERVE_STEPS:
+            step = traffic.step(i)
+            try:
+                serve(i, step, "step")
+            except Crash:
+                crash_step = step
+                break
+            i += 1
+        acked = idx.durable_seq
+        if crash_step is None or acked != SHARD_CRASH_COMMIT - 1:
+            raise AssertionError(f"phase 12b: crashed after {acked} commits at step {i}")
+        idx = None  # dropped without close(), as a dead process leaves it
+        want_bytes = canonical_state_bytes(oracle.state)
+        reset_launches()
+        idx, open_ms = host_ms(lambda: KVPageIndex(**index_kw))
+        counts = {k: LAUNCHES[k] for k in LAUNCHES}
+        log(recovery_line("reopen after the crash, shards=4", idx._durable, open_ms, smi))
+        if idx.durable_seq != acked or idx._durable.replayed < 1:
+            raise AssertionError(f"phase 12b: recovered seq {idx.durable_seq} of {acked}")
+        if live_bytes(idx) != want_bytes:
+            raise AssertionError("phase 12b: the recovered bytes differ from the oracle's")
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"  crash at commit {SHARD_CRASH_COMMIT} (step {i}), wal.append.partial; replay "
+            f"launches { {k: counts[k] for k in SHARD_KERNELS} }; canonical bytes at seq "
+            f"{acked} equal the single-device oracle's")
+        for j in range(SHARD_AFTER):
+            step = crash_step if j == 0 else traffic.step(crash_step["i"] + j)
+            serve(crash_step["i"] + j, step, "step after recovery")
+        idx.close()
+        overhead = [c["ms"] - c["plain_ms"] for c in commits]
+        log(f"  a2a_retries {a2a_retries}; per update commit: WAL record median "
+            f"{median(c['bytes'] for c in commits):.0f} B, append + fsync median "
+            f"{median(c['append_fsync_s'] for c in commits) * 1e3:.3f} ms, step median "
+            f"{median(c['ms'] for c in commits):.3f} ms against "
+            f"{median(c['plain_ms'] for c in commits):.3f} ms without durability (overhead "
+            f"median {median(overhead):.3f} ms); launches {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return launches
+
+
 def range_count_bytes(state, lo, hi, is_range=None) -> int:
     """Bytes the count pass must move: each op's rank and count written, the
     mask read where there is one, and the bounds of the ops under it; for
@@ -3617,6 +4127,7 @@ def main() -> int:
         ("3g", lambda: phase_walk(dev, check)),
         ("3f", lambda: phase_gemm(dev, check)),
         ("3i", lambda: phase_tiered_small(dev)),
+        ("3j", lambda: phase_shard_small(dev)),
         ("4", lambda: merge(measured, phase_main(dev))),
         ("5", lambda: merge(measured, phase_fig9(dev, check))),
         ("6", lambda: serve_launches.append(phase_serve(dev))),
@@ -3626,6 +4137,8 @@ def main() -> int:
         ("10", lambda: serve_launches.append(phase_gateway(dev, smi))),
         ("11a", lambda: serve_launches.append(phase_tiered(dev, smi))),
         ("11b", lambda: serve_launches.append(phase_tiered_durable(dev, smi))),
+        ("12a", lambda: serve_launches.append(phase_shard(dev, smi))),
+        ("12b", lambda: serve_launches.append(phase_shard_durable(dev, smi))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

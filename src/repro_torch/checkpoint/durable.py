@@ -6,8 +6,8 @@ Commit protocol, per engine batch (WAL-ahead):
   1. frame + append the sorted ``OpBatch`` (with its ``max_results``) to
      the write-ahead log and fsync — the batch is durable *before* the
      engine runs it;
-  2. execute it (``apply_ops`` behind an engine adapter, restructure-and-
-     retry included);
+  2. execute it (``apply_ops`` or ``shard_apply_ops`` behind an engine
+     adapter, restructure-and-retry included);
   3. fold the batch's update keys into the dirty-bucket mask (fences are
      fixed between restructures, so host-side ``searchsorted`` routing is
      exact); a restructure bumps the *fence epoch* and dirties everything;
@@ -85,8 +85,8 @@ class EngineBase:
     """Shared engine surface the durability layer talks to: besides
     ``rebuild`` / ``flix`` / ``apply``, four read-only views of the handle,
     through ``flix()`` (a full device state).  ``TieredEngine`` overrides
-    all four with host-tier versions, so that durability never puts the
-    whole index on the device."""
+    all four with host-tier versions and ``ShardEngine`` with shard-by-shard
+    ones, so that durability never puts the whole index on one device."""
 
     def mkba_host(self, handle) -> np.ndarray:
         """The fence array as host numpy (dirty-bucket routing)."""
@@ -173,14 +173,116 @@ class LocalEngine(EngineBase):
 
 
 class ShardEngine(EngineBase):
-    """The sharded executor behind the durability layer: not ported yet."""
+    """The sharded executor (``core.distributed``) behind the durability
+    layer.
+
+    The handle is a ``ShardedFliX`` over ``mesh``.  Recovery rebuilds
+    through ``shard_build`` (fences re-partitioned from the recovered
+    contents, the durable analogue of ``shard_restructure``), and ``apply``
+    mirrors ``shard_apply_ops_safe``'s bucket-overflow retry while reporting
+    the epoch bump.  The four durable hooks work shard by shard, with
+    global bucket ids offset by each shard's first bucket, so no durable
+    path gathers the whole index onto one device.  ``config`` carries the
+    execution strategy, the routing included; ``device`` is the first
+    shard's, where replayed batches are placed.
+    """
 
     kind = "sharded"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardEngine: the sharded engine is not ported yet (ROADMAP Queue 1 item 11)"
+    def __init__(
+        self,
+        mesh,
+        *,
+        config: ExecConfig | None = None,
+        node_size: int = 32,
+        nodes_per_bucket: int = 16,
+        fill: float = 0.5,
+    ):
+        self.mesh = mesh
+        self.config = config if config is not None else ExecConfig()
+        self.node_size = node_size
+        self.nodes_per_bucket = nodes_per_bucket
+        self.fill = fill
+        self.devices = tuple(mesh.devices)
+        self.device = self.devices[0]
+
+    def rebuild(self, keys, vals, exps=None, geometry: dict | None = None):
+        from repro_torch.core.distributed import shard_build
+
+        g = geometry or {}
+        if exps is not None:
+            exps = np.asarray(exps, np.int32)
+            if not (exps != int(NO_EXPIRY)).any():
+                exps = None  # an all-sentinel column rebuilds without TTL
+
+        def col(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
+
+        return shard_build(
+            col(keys),
+            col(vals),
+            self.mesh,
+            node_size=g.get("node_size", self.node_size),
+            nodes_per_bucket=g.get("nodes_per_bucket", self.nodes_per_bucket),
+            fill=g.get("fill", self.fill),
+            sorted_exps=None if exps is None else col(exps),
         )
+
+    def flix(self, handle):
+        # inspection only: the union state on the first shard's device,
+        # which the hooks below exist to avoid
+        from repro_torch.core.distributed import shard_union
+
+        return shard_union(handle, self.device)
+
+    def apply(self, handle, ops: OpBatch, *, max_results: int, now=None):
+        from repro_torch.core.distributed import shard_apply_ops, shard_restructure
+
+        cfg = self.config.replace(max_results=max_results, donate=False)
+        new, results, stats = shard_apply_ops(handle, ops, self.mesh, config=cfg, now=now)
+        restructured = False
+        if bool(new.needs_restructure) and not bool(handle.needs_restructure):
+            n_ins = int(((ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)).sum())
+            grown = shard_restructure(handle, self.mesh, extra_keys=max(n_ins, 1))
+            new, results, stats = shard_apply_ops(grown, ops, self.mesh, config=cfg, now=now)
+            if bool(new.needs_restructure):
+                raise RuntimeError("batch overflowed the geometry shard_restructure planned")
+            restructured = True
+        stats = dict(stats)
+        stats["restructure_retries"] = int(restructured)
+        return new, results, stats, restructured
+
+    def mkba_host(self, handle) -> np.ndarray:
+        return np.concatenate([st.mkba.cpu().numpy() for st in handle.states])
+
+    def geometry(self, handle) -> tuple[int, int, int]:
+        return handle.geometry
+
+    def segments(self, handle, buckets=None):
+        nb_s = handle.states[0].num_buckets
+        if buckets is not None:
+            buckets = np.asarray(buckets, np.int64)
+        parts = []
+        for s, st in enumerate(handle.states):
+            local = None
+            if buckets is not None:
+                local = buckets[(buckets >= s * nb_s) & (buckets < (s + 1) * nb_s)] - s * nb_s
+                if local.size == 0:
+                    continue
+            parts.append(bucket_segments(st, local))
+        if not parts:
+            return bucket_segments(handle.states[0], [])
+        return tuple(np.concatenate(cols) for cols in zip(*parts))
+
+    def expired_buckets(self, handle, now) -> np.ndarray | None:
+        if now is None or not handle.has_ttl:
+            return None
+        nb_s = handle.states[0].num_buckets
+        hits = []
+        for s, st in enumerate(handle.states):
+            hit = torch.any((st.exps <= int(now)) & (st.keys != EMPTY), dim=(1, 2))
+            hits.append(torch.nonzero(hit)[:, 0].cpu().numpy() + s * nb_s)
+        return np.concatenate(hits)
 
 
 class TieredEngine(EngineBase):
@@ -887,6 +989,7 @@ class DurableFliX:
 
 
 def _sync(engine) -> None:
-    """Wait for the engine's device, so that host clocks cover its work."""
-    if getattr(engine, "device", None) is not None and engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+    """Wait for the engine's devices, so that host clocks cover their work."""
+    for dev in getattr(engine, "devices", (getattr(engine, "device", None),)):
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)

@@ -330,12 +330,17 @@ def _zero(device) -> torch.Tensor:
 
 
 def _apply_ops_reference(
-    state: FliXState, ops: OpBatch, *, max_results: int = DEFAULT_MAX_RESULTS
+    state: FliXState,
+    ops: OpBatch,
+    *,
+    max_results: int = DEFAULT_MAX_RESULTS,
+    has_ranges: bool | None = None,
 ):
     """Reference engine: five plain-torch phases (the fused path's oracle).
 
     An absent op class skips its phase (the reference's ``lax.cond``
-    becomes a host-side ``if`` on ``bool(mask.any())``).
+    becomes a host-side ``if`` on ``bool(mask.any())``; ``has_ranges``
+    answers the RANGE one without it).
     """
     # the update phases construct cache-free states; a batch without updates
     # returns its input, so drop the cache here as the reference does
@@ -372,7 +377,9 @@ def _apply_ops_reference(
 
     # --- range phase: dense [lo, hi) scans against the updated state ------
     is_range = tag == OP_RANGE
-    if bool(is_range.any()):
+    if has_ranges is None:
+        has_ranges = bool(is_range.any())
+    if has_ranges:
         rk, rv, rstart, rcnt, rtrunc = dense_range_scan(
             s2, is_range, key, val, max_results=max_results
         )
@@ -399,10 +406,14 @@ def _apply_ops_reference(
     return s2, results, stats
 
 
-def _apply_ops_plain(state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig):
+def _apply_ops_plain(
+    state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig, has_ranges=None
+):
     """Dispatch one TTL-free batch to the chosen executor (impl resolved)."""
     if impl == "reference":
-        return _apply_ops_reference(state, ops, max_results=cfg.max_results)
+        return _apply_ops_reference(
+            state, ops, max_results=cfg.max_results, has_ranges=has_ranges
+        )
     if impl != "fused":
         raise ValueError(f"unknown apply_ops impl: {impl!r}")
     from repro_torch.kernels.flix_apply import flix_apply
@@ -414,11 +425,12 @@ def _apply_ops_plain(state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConf
         ops.val,
         max_results=cfg.max_results,
         staged=cfg.resolve_pipeline(state.device),
+        has_ranges=has_ranges,
     )
 
 
 def _apply_ops_ttl(
-    state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig, now=None
+    state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig, now=None, has_ranges=None
 ):
     """TTL-aware batch execution over either executor (the reference's
     ``_apply_ops_ttl``).  Three steps the executors never see:
@@ -461,10 +473,12 @@ def _apply_ops_ttl(
     val2 = torch.where(present, stored, val)
     val_e = torch.where(tag2 == OP_INSERT, exp, val)  # RANGE hi rides val in both
     s2e, _, _ = _apply_ops_plain(
-        exp_state, OpBatch(tag=tag2, key=key, val=val_e), impl=impl, cfg=cfg
+        exp_state, OpBatch(tag=tag2, key=key, val=val_e), impl=impl, cfg=cfg,
+        has_ranges=has_ranges,
     )
     s2v, results, stats = _apply_ops_plain(
-        value_state, OpBatch(tag=tag2, key=key, val=val2), impl=impl, cfg=cfg
+        value_state, OpBatch(tag=tag2, key=key, val=val2), impl=impl, cfg=cfg,
+        has_ranges=has_ranges,
     )
     new_exps = torch.where(s2v.keys == EMPTY, NO_EXPIRY, s2e.vals)
     del s2e
@@ -485,6 +499,7 @@ def apply_ops(
     *,
     config: ExecConfig | None = None,
     has_updates: bool | None = None,
+    has_ranges: bool | None = None,
     now=None,
 ):
     """Execute one mixed sorted batch on the state's device.  Returns
@@ -505,7 +520,8 @@ def apply_ops(
     ``"fused"`` (``kernels.flix_apply``: the CUDA kernel on the card, its
     plain version on the CPU), or ``"auto"`` — fused on CUDA for batches
     that contain updates, reference otherwise.  ``has_updates`` answers that
-    check without a device sync when the caller already knows.
+    check without a device sync when the caller already knows, and
+    ``has_ranges`` whether the batch holds RANGE ops.
     ``config.pipeline`` picks the fused path's stripe kernel
     (:meth:`ExecConfig.resolve_pipeline`).
 
@@ -530,8 +546,10 @@ def apply_ops(
             impl = "fused" if has_updates else "reference"
     # TTL is structural: an expiry column on the state or on the batch
     if state.exps is not None or ops.exp is not None:
-        return _apply_ops_ttl(state, ops, impl=impl, cfg=cfg, now=now)
-    return _apply_ops_plain(state, ops, impl=impl, cfg=cfg)
+        return _apply_ops_ttl(
+            state, ops, impl=impl, cfg=cfg, now=now, has_ranges=has_ranges
+        )
+    return _apply_ops_plain(state, ops, impl=impl, cfg=cfg, has_ranges=has_ranges)
 
 
 def _update_mask(tag: torch.Tensor) -> torch.Tensor:

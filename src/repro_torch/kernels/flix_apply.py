@@ -365,6 +365,7 @@ def flix_apply(
     *,
     max_results: int = DEFAULT_MAX_RESULTS,
     staged: bool = False,
+    has_ranges: bool | None = None,
 ):
     """Fused mixed-batch apply.  Same contract as ``core.ops.apply_ops``.
 
@@ -372,7 +373,8 @@ def flix_apply(
     (``ExecConfig(pipeline="on")``), else on the single-buffer one; on the
     CPU both are the one plain version.  The TPU kernel's tiling knobs
     (``ExecConfig.block_q``, ``block_b``, ``tile_table``) have no
-    counterpart: the kernels size their own grids.
+    counterpart: the kernels size their own grids.  ``has_ranges`` says
+    whether the batch holds RANGE ops, which spares the host a sync.
     """
     cap = state.bucket_capacity
     n = key.shape[0]
@@ -409,7 +411,9 @@ def flix_apply(
 
     # RANGE: post-update rank fences and per-slot ranks, then the gather
     is_range = tag == OP_RANGE
-    if bool(is_range.any()):
+    if has_ranges is None:
+        has_ranges = bool(is_range.any())
+    if has_ranges:
         g, pref, rstart, remit, rtrunc = range_slots(
             new_state, is_range, key, val, max_results
         )

@@ -35,8 +35,11 @@ touches onto the device and demotes back under the budget after the
 commit.  Results and durable bytes are those of the single-tier index;
 step stats also carry the residency counters.
 
-This port serves one device: the reference's sharding (``shards``)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+``shards`` range-partitions the index over that many shards
+(``core.distributed``): each step runs through ``shard_apply_ops`` (reads)
+or ``shard_apply_ops_safe`` (updates) under ``config.routing``, and durable
+steps through a ``ShardEngine``.  Results and durable bytes are those of
+the single-shard index.
 """
 
 from __future__ import annotations
@@ -60,6 +63,12 @@ from repro_torch.core import (
     build,
     make_ops,
     unsort,
+)
+from repro_torch.core.distributed import (
+    make_shard_mesh,
+    shard_apply_ops,
+    shard_apply_ops_safe,
+    shard_build,
 )
 from repro_torch.core.residency import TieredFliX
 from repro_torch.core.state import resolve_device
@@ -110,7 +119,8 @@ def _host_ints(x) -> list[int]:
 
 
 class KVPageIndex:
-    """Host-driven wrapper around a FliXState on one device.
+    """Host-driven wrapper around a FliXState on one device, or a
+    ``ShardedFliX`` over several.
 
     ``config`` is the execution strategy of every engine step (the port
     takes ``config=`` only): its ``impl`` picks the ``apply_ops`` executor
@@ -138,6 +148,15 @@ class KVPageIndex:
     ``commit=True``, its own grow and replay covering an overflow.  It
     refuses ``snapshot_window``: pinned versions need immutable states,
     and the tiered handle mutates.
+
+    ``shards`` > 0 makes the index sharded (``state`` is then a
+    ``ShardedFliX`` over ``mesh``): ``device=d`` places every shard on
+    ``d``, and without a device the shards take the first ``shards`` cards,
+    raising when there are fewer.  ``config.routing`` picks the routing; a
+    step's padded size is rounded up to a multiple of the shard count, so
+    that ``"a2a"`` chunks are equal.  It refuses ``device_budget``, a
+    single-device residency bound (the reference sizes each shard with
+    ``plan_shard_budget`` instead).
     """
 
     def __init__(
@@ -155,9 +174,10 @@ class KVPageIndex:
         crash_hook=None,
         device_budget: int | None = None,
     ):
-        if shards:
-            raise NotImplementedError(
-                "shards: the sharded engine is not ported yet (ROADMAP Queue 1 item 11)"
+        if device_budget is not None and shards:
+            raise ValueError(
+                "device_budget is a single-device residency bound; "
+                "sharded indexes size each shard via plan_shard_budget"
             )
         if device_budget is not None and snapshot_window:
             raise ValueError(
@@ -165,7 +185,14 @@ class KVPageIndex:
                 "pinned versions need immutable functional states"
             )
         self.config = config if config is not None else ExecConfig()
-        self.device = resolve_device(device)
+        self.mesh = None
+        if shards:
+            self.mesh = make_shard_mesh(
+                shards, None if device is None else [resolve_device(device)] * shards
+            )
+            self.device = self.mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
         self.snapshot_window = int(snapshot_window)
         self._version = 0
         self._pins: dict[int, tuple[object, int | None]] = {}
@@ -174,17 +201,31 @@ class KVPageIndex:
         # seed with one sentinel key (outside the (seq, page) space) so the
         # structure is never empty
         seed = torch.tensor([MAX_VALID], dtype=torch.int32)
-        self.state = build(
-            seed,
-            torch.zeros(1, dtype=torch.int32),
-            node_size=node_size,
-            nodes_per_bucket=nodes_per_bucket,
-            device=self.device,
-        )
+        if self.mesh is not None:
+            self.state = shard_build(
+                seed.to(self.device),
+                torch.zeros(1, dtype=torch.int32, device=self.device),
+                self.mesh,
+                node_size=node_size,
+                nodes_per_bucket=nodes_per_bucket,
+            )
+        else:
+            self.state = build(
+                seed,
+                torch.zeros(1, dtype=torch.int32),
+                node_size=node_size,
+                nodes_per_bucket=nodes_per_bucket,
+                device=self.device,
+            )
         if device_budget is not None:
             self.state = TieredFliX.from_state(self.state, budget_bytes=device_budget)
         if durability_dir is not None:
-            from repro_torch.checkpoint import DurableFliX, LocalEngine, TieredEngine
+            from repro_torch.checkpoint import (
+                DurableFliX,
+                LocalEngine,
+                ShardEngine,
+                TieredEngine,
+            )
 
             engine_kw = dict(
                 config=self.config,
@@ -192,7 +233,10 @@ class KVPageIndex:
                 nodes_per_bucket=nodes_per_bucket,
                 device=self.device,
             )
-            if device_budget is not None:
+            if self.mesh is not None:
+                del engine_kw["device"]
+                engine = ShardEngine(self.mesh, **engine_kw)
+            elif device_budget is not None:
                 engine = TieredEngine(budget_bytes=device_budget, **engine_kw)
             else:
                 engine = LocalEngine(**engine_kw)
@@ -333,21 +377,31 @@ class KVPageIndex:
             )
 
         key = torch.cat(keys)
+        pad_to = _next_pow2(key.shape[0])
+        if self.mesh is not None:
+            # a2a position-shards the batch: equal chunks need a multiple
+            # of the shard count
+            pad_to = -(-pad_to // self.mesh.size) * self.mesh.size
         ops, perm = make_ops(
             torch.cat(tags),
             key,
             torch.cat(vals),
             exps=torch.cat(exps) if has_ttl else None,
-            pad_to=_next_pow2(key.shape[0]),
+            pad_to=pad_to,
             device=dev,
         )
         read_only = n_alloc == 0 and n_getset == 0 and free_seqs is None
+        has_ranges = n_range > 0
         if read_only:
             # the state is untouched: keep the pre-batch state, and run the
             # reference engine (the fused pass would rewrite every stripe)
             cfg = self.config.replace(impl="reference", max_results=range_budget)
             state = self.state if pinned is None else pinned
-            if isinstance(state, TieredFliX):
+            if self.mesh is not None:
+                _, results, stats = shard_apply_ops(
+                    state, ops, self.mesh, config=cfg, has_ranges=has_ranges, now=now
+                )
+            elif isinstance(state, TieredFliX):
                 # pages buckets in and out, but keeps the logical content
                 results, stats, _ = state.apply(ops, config=cfg, now=now, commit=False)
             else:
@@ -362,6 +416,16 @@ class KVPageIndex:
             cfg = self.config.replace(max_results=range_budget)
             results, stats, _ = self.state.apply(ops, config=cfg, now=now)
             self._commit(self.state, now)
+        elif self.mesh is not None:
+            # ``shard_apply_ops_safe`` regrows through shard_restructure and retries
+            # a2a capacity; only inserts can overflow, so frees skip it
+            cfg = self.config.replace(max_results=range_budget)
+            run = shard_apply_ops if n_alloc == 0 and n_getset == 0 else shard_apply_ops_safe
+            new, results, stats = run(
+                self.state, ops, self.mesh, config=cfg, has_updates=True,
+                has_ranges=has_ranges, now=now,
+            )
+            self._commit(new, now)
         elif n_alloc == 0 and n_getset == 0:
             # only inserts can overflow: free steps skip apply_ops_safe
             cfg = self.config.replace(max_results=range_budget)
@@ -453,6 +517,7 @@ class KVPageIndex:
         return out["keys"] & ((1 << PAGE_BITS) - 1), out["vals"], out["count"][0]
 
     def live_pages(self) -> int:
+        # a sharded index sums its shards
         return int(self.state.live_keys()) - 1  # minus the seed key
 
     def getset(self, seq_ids, page_nos, slots, deadlines, *, now=None):

@@ -1354,6 +1354,48 @@ def test_tiered_packed_fused_pass_on_card(cuda, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("routing", ["replicated", "a2a"])
+def test_sharded_fused_pass_on_card(cuda, routing):
+    """Four shards on the one card run the fused path's stripe kernel and
+    fence rows once a shard for a mixed batch (RANGE ops included, answered
+    across shards in torch) and equal the same index on the CPU: results,
+    stats and every shard's state."""
+    from repro_torch.core import distributed as dist
+
+    keys = np.arange(0, 1 << 14, 2, dtype=np.int32)
+    k = np.concatenate([keys[::7] + 1, keys[3::11], keys[::5], keys[1::9] + 1,
+                        keys[::400]]).astype(np.int32)
+    tags = np.concatenate([np.full(len(keys[::7]), tcore.OP_INSERT),
+                           np.full(len(keys[3::11]), tcore.OP_DELETE),
+                           np.full(len(keys[::5]), tcore.OP_POINT),
+                           np.full(len(keys[1::9]), tcore.OP_SUCCESSOR),
+                           np.full(len(keys[::400]), tcore.OP_RANGE)]).astype(np.int32)
+    v = np.where(tags == tcore.OP_RANGE, k + 700, k * 3).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = dist.make_shard_mesh(4, [dev] * 4)
+        idx = dist.shard_build(torch.as_tensor(keys).to(dev), torch.as_tensor(keys // 2).to(dev),
+                               mesh)
+        ops_, _ = tcore.make_ops(tags, k, v, pad_to=4608, device=dev)
+        cfg = tcore.ExecConfig(routing=routing, impl="fused", max_results=512)
+        before = dict(LAUNCHES)
+        out[dev.type] = dist.shard_apply_ops(idx, ops_, mesh, config=cfg)
+        torch.cuda.synchronize()
+        ran = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+        if dev.type == "cuda":
+            assert {n: c for n, c in ran.items() if c} == {
+                "flix_apply_staged": 4, "flix_fence_rows": 4}, ran
+    (gi, gr, gs), (wi, wr, ws) = out["cuda"], out["cpu"]
+    for key in wr:
+        assert torch.equal(gr[key].cpu(), wr[key]), key
+    for key in ws:
+        assert int(gs[key]) == int(ws[key]), key
+    for got, want in zip(gi.states, wi.states):
+        for f in ("keys", "node_count", "node_max", "num_nodes", "mkba"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
 def test_kv_index_on_card_equals_cpu(cuda):
     """A few serving steps (TTL, get-or-set, frees, ranges, a pinned read)
     on the card and on the CPU give the same results and state."""

@@ -186,8 +186,9 @@ def test_step_argument_checks():
     assert empty.slots.numel() == 0 and empty.range_out is None and empty.stats == {}
     with pytest.raises(TypeError):
         slots, range_out, stats = idx.step(lookups=([1], [0]))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        KVPageIndex(device="cpu", shards=2)
+    sharded = KVPageIndex(device="cpu", shards=2)
+    sharded.allocate([1], [0], [5])
+    assert sharded.lookup([1], [0]).tolist() == [5] and sharded.live_pages() == 1
     tiered = KVPageIndex(device="cpu", device_budget=1 << 20)
     assert tiered.resident_bytes == 0  # nothing paged in before a step
     tiered.allocate([1], [0], [5])

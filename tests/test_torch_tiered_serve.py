@@ -129,7 +129,7 @@ def test_kv_index_device_budget_in_lockstep(tmp_path, durable):
 def test_kv_index_device_budget_argument_checks():
     with pytest.raises(ValueError, match="snapshot_window"):
         KVPageIndex(device_budget=1 << 20, snapshot_window=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="single-device residency bound"):
         KVPageIndex(device_budget=1 << 20, shards=2, device="cpu")
     assert KVPageIndex(device="cpu").resident_bytes is None
 
