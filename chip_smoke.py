@@ -265,7 +265,35 @@ line, and no phase catches its own failure:
                 step's ms and its overhead over a sharded index without
                 durability, WAL bytes, a2a_retries, the recovery split.
                 Cut: depth only (4 batches a routing; 8 steps);
- 13. the kernels line, the card line, and the result line.
+ 13. baselines  — the paper's baselines (``repro_torch.core.baselines``) beside
+                FliX on Fig. 9's schedule (``benchmarks/query_qtmf.py:14-80``):
+                phase 5's 2^24 keys from 2^27 in FliX at 32 x 16 (through
+                ``repro_torch.kernels.ops``), the B-tree with its defaults
+                (16-key leaves, 16 a bucket), LSM with 4096-pair chunks and
+                ``lsm_levels(2n, 4096)`` = 15 levels, a hash table of
+                ``int(2n / 0.8)`` slots and a sorted array of 2n; 4 insert
+                rounds of 2^22 fresh keys, then 4 delete rounds of those
+                keys; after each round 2^24 all-hit and 2^24 all-miss point
+                queries per structure, each timed by CUDA events after a warm
+                call, with its ``memory_bytes()`` and QTMF; after the last
+                round 2^22 uniform successor queries for FliX, the sorted
+                array and LSM.  Every answer equals FliX's on the same
+                contents (a hash table that left keys unplaced is held on the
+                keys it placed, the count printed).  The baselines are plain
+                torch emulations of the paper's, as the reference's are jnp
+                ones.  Nothing cut;
+ 14. the kernels line, the card line, and the result line.
+
+Phase 3k (after 3j): the staged kernel's warps a block, ``ExecConfig.
+block_b``, at 2^20 keys in 32 x 16 and 16 x 8 and 2^18 in 32 x 64: every
+candidate W of ``kernels/autotune.py`` whose block fits gives the default
+launch's outputs byte for byte; its blocks an SM by the occupancy API times
+W equal the autotuner's model; the model's shared-memory bytes equal the
+library's; a W that does not fit raises ``ValueError`` naming it; the
+config's ``block_b`` and a tuned tile table reach the launch through
+``apply_ops``.  Phase 4b (after 4): ``autotune([2^24], [2^20], node_size=32,
+nodes_per_bucket=16, measure=True)``, the model's pick, the measured pick and
+every candidate's time.
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -276,6 +304,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -300,6 +329,8 @@ FULL_MAX_RESULTS = 65536
 FIG9_ROUND = 1 << 22  # keys per insert / delete round: a quarter of the build
 FIG9_QUERIES = 1 << 24  # all-hit and all-miss point queries per round
 FIG9_SUCC = 1 << 22  # uniform successor queries per round
+BASELINE_CHUNK = 4096  # phase 13: LSM pairs a chunk (benchmarks/query_qtmf.py:24)
+BASELINE_LOAD = 0.8  # phase 13: the hash table's load at 2n keys (paper §5.1)
 SERVE_SEQS = 1 << 16  # sequence slots of the serving index
 SERVE_PAGES = 256  # pages per slot in the installed build
 SERVE_STEPS = 12
@@ -1177,6 +1208,46 @@ def check_merge_underfull(state) -> None:
         f"bucket's live pairs kept")
 
 
+def phase_autotune(dev):
+    """The autotuner's measured sweep at phase 4's sizes
+    (``kernels/autotune.py``): its synthetic 2^24-key build at 32-key nodes,
+    16 a bucket, and a 2^20-op half-POINT, half-INSERT batch on the card;
+    each feasible warps-a-block count timed through ``apply_ops(impl=
+    "fused", pipeline="on", block_b=W)``.  Printed: the model's pick, the
+    measured pick, every candidate's model cost and time.  Returns the
+    launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import autotune as at
+
+    geo = dict(node_size=32, nodes_per_bucket=16)
+    log(f"phase 4b: autotune([{FULL_KEYS}], [{FULL_OPS}], measure=True) at 32-key nodes, "
+        f"16 a bucket")
+    model_table, model_rec = at.autotune([FULL_KEYS], [FULL_OPS], **geo)
+    torch.cuda.synchronize()
+    reset_launches()
+    table, rec = at.autotune([FULL_KEYS], [FULL_OPS], measure=True, device=dev, **geo)
+    torch.cuda.synchronize()
+    launches = {"flix_apply_staged": LAUNCHES["flix_apply_staged"],
+                "flix_fence_rows": LAUNCHES["flix_fence_rows"]}
+    (sweep,) = rec["sweeps"]
+    feas = [c for c in sweep["candidates"] if c["feasible"]]
+    if launches["flix_apply_staged"] != 4 * len(feas) or LAUNCHES["flix_apply"]:
+        raise AssertionError(f"phase 4b: launches {dict(LAUNCHES)}, expected 4 staged "
+                             f"launches for each of {len(feas)} candidates")
+    for c in sweep["candidates"]:
+        model = next(m for m in model_rec["sweeps"][0]["candidates"]
+                     if m["block_b"] == c["block_b"])
+        timed = f"{c['wall_s'] * 1e3:.4f} ms" if "wall_s" in c else "not timed"
+        log(f"  block_b={c['block_b']}: {c['vmem_bytes']} B of shared memory a block, "
+            f"{c['resident_warps']} warps an SM, model cost {model['model_cost']} ns, "
+            f"apply_ops {timed} (CUDA events, median of 3)")
+    times = sorted(c["wall_s"] for c in feas)
+    log(f"  model pick block_b={model_table.entries[0][3]}, measured pick "
+        f"block_b={table.entries[0][3]}; spread across W {times[-1] / times[0]:.4f}x; "
+        f"launches {launches}")
+    return launches
+
+
 def stripe_pass_bytes(state, ops, r, outs, *, staged: bool) -> int:
     """Bytes a stripe pass must move: the rows that hold keys read, the
     batch's inserts (key and val), deletes, slice bounds and op columns
@@ -1575,6 +1646,111 @@ def phase_walk(dev, check: KernelCheck):
     # the last two: rows and stripes that no bulk copy may move
     for ns, npb in ((32, 16), (8, 8), (32, 64), (4, 2), (6, 4), (3, 3)):
         apply_walk_case(dev, check, gen, ns, npb, 1 << 20)
+
+
+class StagedWarps:
+    """Inside the block: the ``block_b`` of every call of
+    ``flix_apply.flix_apply_staged_pass`` (the engine looks it up on the
+    module), appended to ``seen``."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.kernels import flix_apply as fa
+
+        self._orig = fa.flix_apply_staged_pass
+
+        def spy(num_nodes, *args, block_b=0):
+            self.seen.append(block_b)
+            return self._orig(num_nodes, *args, block_b=block_b)
+
+        fa.flix_apply_staged_pass = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flix_apply as fa
+
+        fa.flix_apply_staged_pass = self._orig
+
+
+def warps_case(dev, gen, ns, npb, n_keys):
+    """The staged kernel at every warps-a-block count W of the autotuner's
+    candidates on one geometry: each W whose block fits gives the W = 0
+    launch's outputs byte for byte (and they equal the plain version); its
+    blocks an SM (the occupancy API, ``flix_apply_staged_blocks_per_sm``)
+    times W equal the model's resident warps; the model's mirror of the
+    block's shared memory equals the library's; a W that does not fit
+    raises ``ValueError`` naming the geometry and W.  Then ``ExecConfig(
+    block_b=W)`` and a tuned tile table through ``apply_ops`` reach the
+    launch and give the default config's batch."""
+    from repro_torch import core
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import flix_apply as fa
+    from repro_torch.kernels._build import load_library
+
+    geo = dict(node_size=ns, nodes_per_bucket=npb)
+    label = f"warps a block, {n_keys} keys, ns={ns} npb={npb}"
+    traffic = Traffic(n_keys * 8, n_keys, gen)
+    state = core.build(*traffic.initial(), **geo)
+    ops, _ = core.make_ops(*traffic.mixed(1 << 16))
+    args, _ = fa.stripe_inputs(state, ops.tag, ops.key, ops.val)
+    want = fa.flix_apply_staged_pass(state.num_nodes, *args)
+    if max_abs_err(fa.flix_apply_reference(*args), want):
+        raise AssertionError(f"{label}: the W = 0 launch disagrees with its plain version")
+    lib = load_library()
+    rows = []
+    for w in (0,) + at.CANDIDATE_BLOCK_B:
+        mirror = at.smem_bytes(128, w, **geo)
+        if lib.flix_apply_staged_smem_bytes(npb, ns, w) != mirror:
+            raise AssertionError(f"{label}: W={w}: the model's {mirror} shared-memory bytes "
+                                 f"!= the library's {lib.flix_apply_staged_smem_bytes(npb, ns, w)}")
+        if mirror > at.SMEM_BUDGET_BYTES:
+            try:
+                fa.flix_apply_staged_pass(state.num_nodes, *args, block_b=w)
+            except ValueError as e:
+                if f"npb={npb}, ns={ns}" not in str(e) or f"{w} warps" not in str(e):
+                    raise AssertionError(f"{label}: W={w} refused without naming it: {e}")
+                rows.append(f"W={w} {mirror} B refused")
+                continue
+            raise AssertionError(f"{label}: W={w} ({mirror} B) was launched")
+        got = fa.flix_apply_staged_pass(state.num_nodes, *args, block_b=w)
+        if max_abs_err(want, got):
+            raise AssertionError(f"{label}: W={w} disagrees with the W = 0 launch")
+        api = fa.staged_blocks_per_sm(npb, ns, w, dev) * at.block_warps(w, **geo)
+        model = at.blocks_per_sm(w, **geo) * at.block_warps(w, **geo)
+        if api != model:
+            raise AssertionError(f"{label}: W={w}: {api} resident warps an SM by the "
+                                 f"occupancy API, {model} by the model")
+        rows.append(f"W={w} {mirror} B, {api} warps an SM")
+    cfg = core.ExecConfig(impl="fused", pipeline="on", max_results=8192)
+    base = core.apply_ops(state, ops, config=cfg)
+    build_size = state.num_buckets * state.bucket_capacity
+    table, _ = at.autotune([build_size], [ops.size], **geo)
+    pick = table.entries[0][3]
+    with StagedWarps() as spy:
+        for w in at.CANDIDATE_BLOCK_B:
+            if at.blocks_per_sm(w, **geo):
+                check_same(f"{label}: apply_ops at block_b={w}", core.apply_ops(
+                    state, ops, config=cfg.replace(block_b=w)), base)
+        check_same(f"{label}: apply_ops with a tile table", core.apply_ops(
+            state, ops, config=cfg.replace(tile_table=table)), base)
+    fits = [w for w in at.CANDIDATE_BLOCK_B if at.blocks_per_sm(w, **geo)]
+    if spy.seen != fits + [pick]:
+        raise AssertionError(f"{label}: the launches took block_b {spy.seen}, "
+                             f"expected {fits + [pick]}")
+    log(f"  {label}: " + "; ".join(rows) + f"; each fitting W equals the W = 0 launch and "
+        f"the plain version; apply_ops reached the launch with block_b {spy.seen} (the "
+        f"table's pick {pick}) and equals the default config")
+
+
+def phase_warps(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    log("phase 3k: the staged kernel's warps a block (ExecConfig.block_b)")
+    # the main geometry, a generic one, and a wide one where 8 warps do not fit
+    for ns, npb, n_keys in ((32, 16, 1 << 20), (16, 8, 1 << 20), (32, 64, 1 << 18)):
+        warps_case(dev, gen, ns, npb, n_keys)
 
 
 def phase_kernel_ops(dev, check: KernelCheck):
@@ -3583,6 +3759,163 @@ def phase_shard_durable(dev, smi):
     return launches
 
 
+def lsm_levels(total_keys: int, chunk: int) -> int:
+    """Right-sized LSM level count, capacity about twice the final key count
+    (``benchmarks/common.py:66-71``, copied: that file imports JAX)."""
+    need = max(1, math.ceil(total_keys / chunk))
+    return max(3, math.ceil(math.log2(need)) + 2)
+
+
+def hold_baseline(label, q, want, got, unplaced: int = 0):
+    """A baseline's point answers to the queries ``q`` against FliX's on the
+    same contents, exactly; a hash table whose inserts left keys unplaced
+    may answer NOT_FOUND for at most that many distinct keys, and is
+    otherwise held on the keys it placed.  Returns those keys' count."""
+    from repro_torch.core.state import NOT_FOUND
+
+    bad = got != want
+    if not bool(bad.any()):
+        return 0
+    missed = int(torch.unique(q[bad]).numel()) if unplaced else -1
+    if not unplaced or not bool((got[bad] == NOT_FOUND).all()) or missed > unplaced:
+        raise AssertionError(f"{label}: {int(bad.sum())} answers differ from FliX's "
+                             f"({unplaced} keys left unplaced)")
+    return missed
+
+
+def phase_baselines(dev, smi):
+    """The paper's baselines beside FliX on Fig. 9's schedule
+    (``benchmarks/query_qtmf.py:14-80``): FliX at 32 x 16 through
+    ``repro_torch.kernels.ops``, the B-tree with its defaults, LSM with
+    4096-pair chunks and ``lsm_levels(2n, 4096)`` levels, a hash table of
+    ``int(2n / 0.8)`` slots and a sorted array of 2n, each built from phase
+    5's 2^24 keys; 4 insert rounds of 2^22 fresh keys, then 4 delete rounds
+    of those keys; after each round 2^24 all-hit and 2^24 all-miss point
+    queries per structure, each timed by CUDA events (a warm call first),
+    with each structure's memory_bytes() and QTMF; after the last round
+    2^22 successor queries for FliX, the sorted array and LSM.  Every
+    answer is held against FliX's on the same contents.  The baselines are
+    plain torch emulations of the paper's, as the reference's are jnp ones.
+    Returns FliX's launches."""
+    from repro_torch import core
+    from repro_torch.core.baselines import btree
+    from repro_torch.core.baselines import hash_table as ht
+    from repro_torch.core.baselines import lsm
+    from repro_torch.core.baselines import sorted_array as sa
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    n = FULL_KEYS
+    log(f"phase 13: the baselines beside FliX, Fig. 9's schedule on {n} keys from a "
+        f"{FULL_SPACE} key space, rounds of {FIG9_ROUND} keys ({smi})")
+    torch.cuda.reset_peak_memory_stats()
+    traffic = Traffic(FULL_SPACE, n, gen)
+    keys, vals = traffic.initial()
+    built = {}
+    flix, built["flix"] = host_ms(lambda: core.build(keys, vals))
+    bt, built["btree"] = host_ms(lambda: btree.build(keys, vals))
+    levels = lsm_levels(2 * n, BASELINE_CHUNK)
+    lsmu, built["lsmu"] = host_ms(
+        lambda: lsm.insert(lsm.empty_state(BASELINE_CHUNK, levels), keys, vals))
+    (h, unplaced), built["hashtable"] = host_ms(
+        lambda: ht.insert(ht.empty_state(int(2 * n / BASELINE_LOAD)), keys, vals))
+    unplaced = int(unplaced)
+    sarr, built["sortedarray"] = host_ms(lambda: sa.build(keys, vals, 2 * n))
+    del keys, vals
+    log("  builds (host ms, synced): " + ", ".join(f"{k} {v:.1f}" for k, v in built.items())
+        + f"; LSM {levels} levels of {BASELINE_CHUNK} x 2^i pairs; hash table "
+        f"{h.capacity} slots, {unplaced} keys unplaced")
+    pool = traffic.perm[n : n + 4 * FIG9_ROUND]
+    names = ("flix_point_query", "flix_successor", "flix_fence_rows", "flix_insert",
+             "flix_delete")
+    launches = {k: 0 for k in names}
+    for rnd in range(8):
+        ins = rnd < 4
+        chunk = pool[(rnd % 4) * FIG9_ROUND : (rnd % 4 + 1) * FIG9_ROUND]
+        upd_k, order = torch.sort(chunk, stable=True)
+        upd_v = torch.arange(FIG9_ROUND, dtype=torch.int32, device=dev)[order]
+        upd_ms = {}
+        reset_launches()
+        if ins:
+            (flix, overflow), upd_ms["flix"] = host_ms(
+                lambda: kops.flix_insert(flix, upd_k, upd_v))
+            if int(overflow.max()):
+                raise AssertionError(f"baselines round {rnd}: a FliX insert overflowed")
+            bt, upd_ms["btree"] = host_ms(lambda: btree.insert(bt, upd_k, upd_v))
+            lsmu, upd_ms["lsmu"] = host_ms(lambda: lsm.insert(lsmu, upd_k, upd_v))
+            (h, left), upd_ms["hashtable"] = host_ms(lambda: ht.insert(h, upd_k, upd_v))
+            unplaced += int(left)
+            sarr, upd_ms["sortedarray"] = host_ms(lambda: sa.insert(sarr, upd_k, upd_v))
+        else:
+            flix, upd_ms["flix"] = host_ms(lambda: kops.flix_delete(flix, upd_k))
+            bt, upd_ms["btree"] = host_ms(lambda: btree.delete(bt, upd_k))
+            lsmu, upd_ms["lsmu"] = host_ms(lambda: lsm.delete(lsmu, upd_k))
+            h, upd_ms["hashtable"] = host_ms(lambda: ht.delete(h, upd_k))
+            sarr, upd_ms["sortedarray"] = host_ms(lambda: sa.delete(sarr, upd_k))
+        traffic.alive[chunk.long()] = ins
+        live = torch.nonzero(traffic.alive)[:, 0].to(torch.int32)
+        hits = torch.sort(live[torch.randint(0, live.numel(), (FIG9_QUERIES,), generator=gen,
+                                             device=dev)]).values
+        cand = torch.unique(traffic._rand_keys(2 * FIG9_QUERIES))
+        cand = cand[~traffic.alive[cand.long()]]
+        pick = torch.randperm(cand.numel(), generator=gen, device=dev)[:FIG9_QUERIES]
+        misses = torch.sort(cand[pick]).values
+        del live, cand, pick
+        want = {"hit": kops.flix_point_query(flix, hits),
+                "miss": kops.flix_point_query(flix, misses)}
+        if rnd == 7:
+            succ = torch.sort(traffic._rand_keys(FIG9_SUCC)).values
+            s_want = kops.flix_successor(flix, succ)
+        torch.cuda.synchronize()
+        for k in names:
+            launches[k] += LAUNCHES[k]
+        if bool((want["hit"] == core.NOT_FOUND).any()) or bool(
+                (want["miss"] != core.NOT_FOUND).any()):
+            raise AssertionError(f"baselines round {rnd}: a FliX hit missed or a miss hit")
+        structures = {
+            "flix": (lambda q: kops.flix_point_query(flix, q), flix.memory_bytes()),
+            "btree": (lambda q: btree.point_query(bt, q), bt.memory_bytes()),
+            "lsmu": (lambda q: lsm.point_query(lsmu, q), lsmu.memory_bytes()),
+            "hashtable": (lambda q: ht.point_query(h, q), h.memory_bytes()),
+            "sortedarray": (lambda q: sa.point_query(sarr, q), sarr.memory_bytes()),
+        }
+        parts, missed = [], 0
+        for name, (fn, mem) in structures.items():
+            q_ms = {}
+            for what, q in (("hit", hits), ("miss", misses)):
+                got = fn(q)  # the warm call
+                missed = max(missed, hold_baseline(
+                    f"baselines round {rnd}: {name} {what}", q, want[what], got,
+                    unplaced if name == "hashtable" else 0))
+                del got
+                q_ms[what] = event_ms(lambda: fn(q), 3)
+            qtmf = FIG9_QUERIES / (q_ms["hit"] / 1e3) / mem
+            parts.append(f"{name} {upd_ms[name]:.1f} ms {'insert' if ins else 'delete'}, "
+                         f"all-hit {q_ms['hit']:.4f} ms, all-miss {q_ms['miss']:.4f} ms, "
+                         f"{mem} B, QTMF {qtmf:.6g} q/s/B")
+        log(f"  round {rnd}: " + "; ".join(parts)
+            + (f"; hash table: {unplaced} keys unplaced so far, {missed} missed"
+               if unplaced else ""))
+        del hits, misses, want
+    parts = []
+    for name, fn in (("flix", lambda: kops.flix_successor(flix, succ)),
+                     ("sortedarray", lambda: sa.successor_query(sarr, succ)),
+                     ("lsmu", lambda: lsm.successor_query(lsmu, succ))):
+        got = fn()
+        for w, g, what in zip(s_want, got, ("key", "val")):
+            if not torch.equal(w, g):
+                raise AssertionError(f"baselines: {name} successor {what}s differ from FliX's")
+        parts.append(f"{name} {event_ms(fn, 3):.4f} ms")
+    log(f"  {FIG9_SUCC} successor queries after the last delete round (all equal FliX's): "
+        + ", ".join(parts))
+    log(f"  FliX launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi}); the baselines' "
+        f"times are those of torch emulations, not of the paper's implementations")
+    return launches
+
+
 def range_count_bytes(state, lo, hi, is_range=None) -> int:
     """Bytes the count pass must move: each op's rank and count written, the
     mask read where there is one, and the bounds of the ops under it; for
@@ -4128,7 +4461,9 @@ def main() -> int:
         ("3f", lambda: phase_gemm(dev, check)),
         ("3i", lambda: phase_tiered_small(dev)),
         ("3j", lambda: phase_shard_small(dev)),
+        ("3k", lambda: phase_warps(dev)),
         ("4", lambda: merge(measured, phase_main(dev))),
+        ("4b", lambda: serve_launches.append(phase_autotune(dev))),
         ("5", lambda: merge(measured, phase_fig9(dev, check))),
         ("6", lambda: serve_launches.append(phase_serve(dev))),
         ("7", lambda: merge(measured, phase_range(dev, check))),
@@ -4139,6 +4474,7 @@ def main() -> int:
         ("11b", lambda: serve_launches.append(phase_tiered_durable(dev, smi))),
         ("12a", lambda: serve_launches.append(phase_shard(dev, smi))),
         ("12b", lambda: serve_launches.append(phase_shard_durable(dev, smi))),
+        ("13", lambda: serve_launches.append(phase_baselines(dev, smi))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

@@ -6,9 +6,13 @@ batch under different configs give the same results.  The port takes
 ``config=`` only; the reference's deprecated per-keyword shims have no
 callers here.
 
-``block_q``, ``block_b`` and ``tile_table`` are the TPU kernel's tiling
-knobs.  The CUDA kernels size their own grids and read none of them; they
-are kept so that one config object serves both packages.
+``block_b`` and ``tile_table`` reach the staged stripe kernel
+(``csrc/flix_apply_staged.cu``), which reads ``block_b`` as its warps a
+block: the buckets one block holds in flight, as the TPU kernel's ``block_b``
+is the bucket stripes one grid step holds.  ``block_q`` (ops a window) has
+no counterpart on the card: a warp finds its op slice from the batch's
+per-bucket bounds.  It is kept, with the table's four columns, so that one
+config object and one tile table serve both packages.
 """
 
 from __future__ import annotations
@@ -86,8 +90,12 @@ class ExecConfig:
                        as a second witness of the staged kernel's function.
     ``donate``       — accepted and ignored: the port never writes its input
                        state, as JAX ignores donation on the CPU.
-    ``block_q``/``block_b``/``tile_table`` — TPU tiling knobs, unread by
-                       the CUDA launch.
+    ``block_b``/``tile_table`` — the staged kernel's warps a block (1 to
+                       8; None and 0 keep the kernel's own count), explicit
+                       or from the table (:meth:`resolve_blocks`,
+                       ``kernels/autotune.py``); the single-buffer kernel
+                       and the plain version do not read it.
+    ``block_q``      — the TPU kernel's ops a window; no counterpart here.
     ``max_results``  — per-batch dense RANGE output budget (static).
     ``capacity``/``routing`` — sharded-engine knobs, unread by this slice.
     ``validate``     — run ``check_invariants`` on results (``apply_ops_safe``).
@@ -129,8 +137,9 @@ class ExecConfig:
     def resolve_blocks(
         self, build_size: int, batch_size: int
     ) -> tuple[int | None, int | None]:
-        """The (block_q, block_b) a TPU launch would take: explicit overrides
-        win, then the tile table, then (None, None)."""
+        """The (block_q, block_b) of a launch: explicit overrides win, then
+        the tile table, then (None, None).  The staged kernel takes block_b
+        as its warps a block; block_q has no reader on the card."""
         bq, bb = self.block_q, self.block_b
         if (bq is None or bb is None) and self.tile_table is not None:
             hit = self.tile_table.lookup(build_size, batch_size)

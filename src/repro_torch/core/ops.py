@@ -418,6 +418,8 @@ def _apply_ops_plain(
         raise ValueError(f"unknown apply_ops impl: {impl!r}")
     from repro_torch.kernels.flix_apply import flix_apply
 
+    nb, npb, ns = state.geometry
+    _, block_b = cfg.resolve_blocks(nb * npb * ns, ops.size)
     return flix_apply(
         state,
         ops.tag,
@@ -425,6 +427,7 @@ def _apply_ops_plain(
         ops.val,
         max_results=cfg.max_results,
         staged=cfg.resolve_pipeline(state.device),
+        block_b=block_b or 0,
         has_ranges=has_ranges,
     )
 

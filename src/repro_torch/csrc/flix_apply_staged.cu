@@ -11,6 +11,15 @@
 // kernels).  Each slot stages a bucket's live rows, its node max row, and
 // its op, insert and delete slices where they fit; the six slice bounds and
 // num_nodes that address those copies are loaded a bucket earlier still.
+// The launch's `warps` a block are the TPU kernel's block_b (the bucket
+// stripes one grid step holds): ExecConfig.block_b, or the tile table's pick
+// (kernels/autotune.py), 1 to kMaxWalkWarps; 0 keeps warps_per_block's rule.
+// Each warp keeps its own ring, so the count changes the blocks an SM holds
+// and never a bucket's result.  Blocks of up to kMaxWarps warps run the
+// instantiation bounded at kMaxWarps (ptxas sizes its registers for 128
+// threads: 96 on sm_90a), larger ones the instantiation bounded at
+// kMaxWalkWarps (128 registers: the wider bound lets ptxas spend more, and
+// the same body ran ~6% slower on an H100 with it); the body is one.
 //
 // Per bucket: the keep path (no insert and no delete in the slice, most
 // buckets of a mixed batch; write_packed), or the whole update path of
@@ -134,7 +143,8 @@ __device__ inline void staged_bucket(const StagedRing& r, const Scratch& s, cons
            o0, o1, nn_out, npb, ns, lane);
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
+template <int MaxWarps>
+__global__ void __launch_bounds__(MaxWarps * 32)
     flix_apply_staged_kernel(const ApplyArgs a, const int* __restrict__ num_nodes, int nb,
                              int npb, int ns) {
   extern __shared__ __align__(16) int smem[];
@@ -149,13 +159,40 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       });
 }
 
+using StagedKernel = decltype(&flix_apply_staged_kernel<kMaxWarps>);
+
+// The instantiation that runs blocks of `warps` warps (0: the default count).
+StagedKernel staged_kernel(int npb, int ns, int warps) {
+  if (warps_per_block<StagedRing>(npb, ns, warps) <= kMaxWarps)
+    return flix_apply_staged_kernel<kMaxWarps>;
+  return flix_apply_staged_kernel<kMaxWalkWarps>;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one staged block needs for a (npb, ns) geometry:
-// its warps' rings and scratch (INT_MAX where that does not fit an int).
-int flix_apply_staged_smem_bytes(int npb, int ns) { return walk_smem_bytes<StagedRing>(npb, ns); }
+// Dynamic shared memory one staged block of `warps` warps (0: the default
+// count of warps_per_block) needs for a (npb, ns) geometry: its warps' rings
+// and scratch (INT_MAX where that does not fit an int).
+int flix_apply_staged_smem_bytes(int npb, int ns, int warps) {
+  return walk_smem_bytes<StagedRing>(npb, ns, warps);
+}
+
+// Staged blocks of `warps` warps (0: the default count) that one SM holds at
+// once for a (npb, ns) geometry, as the occupancy API answers for the launch
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor after the shared memory
+// opt-in); minus the CUDA error code on failure.
+int flix_apply_staged_blocks_per_sm(int npb, int ns, int warps) {
+  if (warps < 0 || warps > kMaxWalkWarps) return -(int)cudaErrorInvalidValue;
+  const int threads = 32 * warps_per_block<StagedRing>(npb, ns, warps);
+  int dev = 0, sms = 0, resident = 0;
+  int e = walk_capacity(reinterpret_cast<const void*>(staged_kernel(npb, ns, warps)), npb, ns,
+                        threads, walk_smem_bytes<StagedRing>(npb, ns, warps), &resident);
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e != 0 ? -e : resident / sms;
+}
 
 int flix_apply_staged_launch(const int* keys, const int* vals, const int* node_max,
                              const int* ins_keys, const int* ins_vals,
@@ -166,13 +203,13 @@ int flix_apply_staged_launch(const int* keys, const int* vals, const int* node_m
                              const int* num_nodes, int* keys_out, int* vals_out,
                              int* count_out, int* max_out, int* nn_out, int* flow_out,
                              int* del_out, int* value_out, int* succ_out, int nb, int npb,
-                             int ns, void* stream) {
+                             int ns, int warps, void* stream) {
   const ApplyArgs a = {keys,      vals,       node_max,   ins_keys,  ins_vals, ins_starts,
                        ins_ends,  del_keys,   del_starts, del_ends,  op_tag,   op_key,
                        op_starts, op_ends,    keys_out,   vals_out,  count_out, max_out,
                        nn_out,    flow_out,   del_out,    value_out, succ_out};
-  return launch_walk<StagedRing>(flix_apply_staged_kernel, nb, npb, ns, stream, a, num_nodes,
-                                 nb, npb, ns);
+  return launch_walk<StagedRing>(staged_kernel(npb, ns, warps), nb, npb, ns, warps, stream, a,
+                                 num_nodes, nb, npb, ns);
 }
 
 }  // extern "C"

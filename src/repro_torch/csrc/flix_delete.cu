@@ -85,8 +85,8 @@ int flix_delete_launch(const int* keys, const int* vals, const int* num_nodes, c
                        const int* del_keys, int* keys_out, int* vals_out, int* count_out,
                        int* max_out, int* nn_out, int nb, int npb, int ns, void* stream) {
   const StripeOut o = {keys_out, vals_out, count_out, max_out, nn_out};
-  return launch_walk<DeleteRing>(flix_delete_kernel, nb, npb, ns, stream, keys, vals, num_nodes,
-                                 ends, del_keys, o, nb, npb, ns);
+  return launch_walk<DeleteRing>(flix_delete_kernel, nb, npb, ns, 0, stream, keys, vals,
+                                 num_nodes, ends, del_keys, o, nb, npb, ns);
 }
 
 }  // extern "C"

@@ -102,8 +102,9 @@ int flix_insert_launch(const int* keys, const int* vals, const int* node_max,
                        int* max_out, int* nn_out, int* flow_out, int nb, int npb, int ns,
                        void* stream) {
   const StripeOut o = {keys_out, vals_out, count_out, max_out, nn_out};
-  return launch_walk<InsertRing>(flix_insert_kernel, nb, npb, ns, stream, keys, vals, node_max,
-                                 num_nodes, ends, ins_keys, ins_vals, o, flow_out, nb, npb, ns);
+  return launch_walk<InsertRing>(flix_insert_kernel, nb, npb, ns, 0, stream, keys, vals,
+                                 node_max, num_nodes, ends, ins_keys, ins_vals, o, flow_out, nb,
+                                 npb, ns);
 }
 
 }  // extern "C"

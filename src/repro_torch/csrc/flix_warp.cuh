@@ -66,8 +66,10 @@ namespace flix {
 constexpr int kBoundInts = 8;
 constexpr int kInsStart = 0, kInsEnd = 1, kDelStart = 2, kDelEnd = 3, kOpStart = 4,
               kOpEnd = 5, kNumNodes = 6;
-// warps of a block, and the shared memory a Hopper block may opt in to
+// warps of a block by default, the most a launch may ask for (the staged
+// kernel's launch bounds), and the shared memory a Hopper block may opt in to
 constexpr int kMaxWarps = 4;
+constexpr int kMaxWalkWarps = 8;
 constexpr long long kSmemOptin = 232448;
 
 __device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
@@ -186,21 +188,23 @@ __device__ inline Scratch carve_scratch(int* w, int npb, int ns) {
   return s;
 }
 
-// Warps of a block for a geometry: as many as kMaxWarps whose shared memory
-// fits one block, at least one.
+// Warps of a block for a geometry: `warps` where the launch asks for a
+// count (1 to kMaxWalkWarps), else (0) as many as kMaxWarps whose shared
+// memory fits one block, at least one.
 template <class R>
-inline int warps_per_block(int npb, int ns) {
+inline int warps_per_block(int npb, int ns, int warps = 0) {
+  if (warps > 0) return warps;
   const long long per_warp = warp_ints<R>(npb, ns) * (long long)sizeof(int);
   const long long w = kSmemOptin / per_warp;
   return w < 1 ? 1 : (w > kMaxWarps ? kMaxWarps : (int)w);
 }
 
-// Dynamic shared memory of one block (INT_MAX where that does not fit an
-// int).
+// Dynamic shared memory of one block of warps_per_block<R>(npb, ns, warps)
+// warps (INT_MAX where that does not fit an int).
 template <class R>
-inline int walk_smem_bytes(int npb, int ns) {
+inline int walk_smem_bytes(int npb, int ns, int warps = 0) {
   const long long bytes =
-      warps_per_block<R>(npb, ns) * warp_ints<R>(npb, ns) * (long long)sizeof(int);
+      warps_per_block<R>(npb, ns, warps) * warp_ints<R>(npb, ns) * (long long)sizeof(int);
   return bytes > 0x7fffffffLL ? 0x7fffffff : (int)bytes;
 }
 
@@ -273,17 +277,18 @@ __device__ inline void walk_buckets(int* smem, int nb, int npb, int ns, Bounds b
 // The blocks of `threads` threads and `smem` bytes of shared memory that
 // every SM of the current device holds at once for `kernel`, in *blocks,
 // with the kernel's shared memory opt-in raised to smem where it passes
-// 48 KiB.  The runtime's answers depend on the kernel, the device and the
-// geometry alone, so each is asked on its first launch and kept; a later
-// launch pays cudaGetDevice and a lookup (and the opt-in again only where
-// the geometry changed).  Returns the CUDA error code.
+// 48 KiB.  The runtime's answers depend on the kernel, the device, the
+// geometry and the block's threads alone, so each is asked on its first
+// launch and kept; a later launch pays cudaGetDevice and a lookup (and the
+// opt-in again only where the block's shared memory changed).  Returns the
+// CUDA error code.
 inline int walk_capacity(const void* kernel, int npb, int ns, int threads, int smem,
                          int* blocks) {
   int dev = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, int> resident;
+  static std::map<std::tuple<const void*, int, int, int, int>, int> resident;
   static std::map<std::pair<const void*, int>, int> optin;  // as last set
   const std::lock_guard<std::mutex> hold(mu);
   if (smem > 48 * 1024) {
@@ -294,7 +299,7 @@ inline int walk_capacity(const void* kernel, int npb, int ns, int threads, int s
       set = smem;
     }
   }
-  const auto key = std::make_tuple(kernel, dev, npb, ns);
+  const auto key = std::make_tuple(kernel, dev, npb, ns, threads);
   auto it = resident.find(key);
   if (it == resident.end()) {
     int sms = 0, per_sm = 0;
@@ -310,15 +315,17 @@ inline int walk_capacity(const void* kernel, int npb, int ns, int threads, int s
   return 0;
 }
 
-// Launch a walk_buckets kernel: blocks of warps_per_block<R> warps, as many
-// as the occupancy API lets every SM hold, at most a warp per bucket.
-// Returns the CUDA error code.
+// Launch a walk_buckets kernel: blocks of warps_per_block<R>(npb, ns, warps)
+// warps, as many as the occupancy API lets every SM hold, at most a warp per
+// bucket.  Returns the CUDA error code (cudaErrorInvalidValue for a warp
+// count outside 0 to kMaxWalkWarps).
 template <class R, class... P, class... A>
-inline int launch_walk(void (*kernel)(P...), int nb, int npb, int ns, void* stream,
+inline int launch_walk(void (*kernel)(P...), int nb, int npb, int ns, int warps, void* stream,
                        A&&... args) {
+  if (warps < 0 || warps > kMaxWalkWarps) return (int)cudaErrorInvalidValue;
   if (nb == 0) return 0;
-  const int smem = walk_smem_bytes<R>(npb, ns);
-  const int wpb = warps_per_block<R>(npb, ns), threads = 32 * wpb;
+  const int smem = walk_smem_bytes<R>(npb, ns, warps);
+  const int wpb = warps_per_block<R>(npb, ns, warps), threads = 32 * wpb;
   int resident = 0;
   const int e = walk_capacity(reinterpret_cast<const void*>(kernel), npb, ns, threads, smem,
                               &resident);

@@ -59,18 +59,23 @@ def _require_cuda(kernel: str, device: torch.device) -> None:
         raise ValueError(f"{kernel} runs on CUDA or the CPU, not {device}")
 
 
-def check_smem(kernel: str, bytes_fn: str, npb: int, ns: int, device) -> None:
-    """Raise ``ValueError`` naming the geometry when one stripe block of
-    ``kernel`` needs more shared memory than the card allows."""
+def check_smem(
+    kernel: str, bytes_fn: str, npb: int, ns: int, device, *, warps: int | None = None
+) -> None:
+    """Raise ``ValueError`` naming the geometry (and the warps a block, where
+    the launch asks for a count) when one stripe block of ``kernel`` needs
+    more shared memory than the card allows.  ``bytes_fn`` takes ``(npb,
+    ns)``, or ``(npb, ns, warps)`` where ``warps`` is given."""
     _require_cuda(kernel, device)
     lib = load_library()
     with torch.cuda.device(device):
-        need = getattr(lib, bytes_fn)(npb, ns)
+        need = getattr(lib, bytes_fn)(npb, ns, *(() if warps is None else (warps,)))
         limit = lib.flix_smem_optin_bytes()
     if need > limit:
+        block = f" with {warps} warps a block" if warps else ""
         raise ValueError(
-            f"{kernel}: geometry (npb={npb}, ns={ns}) needs {need} bytes of shared "
-            f"memory per block; this card allows {limit}"
+            f"{kernel}: geometry (npb={npb}, ns={ns}){block} needs {need} bytes of "
+            f"shared memory per block; this card allows {limit}"
         )
 
 

@@ -74,6 +74,10 @@ from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
 from repro_torch.kernels.flix_range import flix_range_count, range_gather
 from repro_torch.kernels.flix_successor import fence_rows
 
+# the most warps a block of the staged kernel may be given (csrc/flix_warp.cuh's
+# kMaxWalkWarps, the kernel's launch bounds)
+STAGED_MAX_WARPS = 8
+
 # the stripe pass's inputs, in the order of the C entry point
 _PASS_INPUTS = (
     "keys",
@@ -179,22 +183,46 @@ def flix_apply_grid(npb: int, ns: int, device) -> int:
     return blocks
 
 
-def flix_apply_staged_pass(num_nodes, *args):
+def staged_blocks_per_sm(npb: int, ns: int, block_b: int, device) -> int:
+    """The staged kernel's blocks of ``block_b`` warps (0: its default count)
+    that one SM of ``device`` (a CUDA card) holds at once for a ``(npb, ns)``
+    geometry, as the occupancy API answers for its launch."""
+    _require_cuda("flix_apply_staged", torch.device(device))
+    with torch.cuda.device(device):
+        blocks = load_library().flix_apply_staged_blocks_per_sm(npb, ns, block_b)
+    if blocks < 0:
+        raise RuntimeError(f"flix_apply_staged_blocks_per_sm failed with CUDA error {-blocks}")
+    return blocks
+
+
+def flix_apply_staged_pass(num_nodes, *args, block_b: int = 0):
     """The stripe pass by the staged kernel (``csrc/flix_apply_staged.cu``):
     the same function as :func:`flix_apply_pass` on the same ``args``, with
     the state's ``num_nodes`` [nb] telling it which rows hold keys (I3/I4
     pack the active nodes first), so that only those rows are read.  Its
-    plain version is :func:`flix_apply_reference`, which runs on the CPU."""
+    plain version is :func:`flix_apply_reference`, which runs on the CPU.
+
+    ``block_b`` is the warps of one block of the launch, 1 to
+    :data:`STAGED_MAX_WARPS` (0: the kernel's own count, as many as 4 that
+    fit): the TPU kernel's bucket stripes a grid step.  A count whose block
+    does not fit the card's shared memory raises ``ValueError``.  The plain
+    version does not read it."""
     nb = args[0].shape[0]
     check(args[0].device, ("num_nodes",), (num_nodes,))
     if num_nodes.shape != (nb,):
         raise ValueError(f"num_nodes must have shape ({nb},)")
-    return _stripe_pass(args, num_nodes=num_nodes)
+    if not 0 <= block_b <= STAGED_MAX_WARPS:
+        raise ValueError(
+            f"flix_apply_staged: block_b={block_b} warps a block; the kernel takes "
+            f"0 (its own count) to {STAGED_MAX_WARPS}"
+        )
+    return _stripe_pass(args, num_nodes=num_nodes, block_b=block_b)
 
 
-def _stripe_pass(args, *, num_nodes=None):
+def _stripe_pass(args, *, num_nodes=None, block_b: int = 0):
     """Check the stripe pass's inputs, then run the plain version (CPU), the
-    single-buffer kernel, or (given ``num_nodes``) the staged kernel."""
+    single-buffer kernel, or (given ``num_nodes``) the staged kernel in
+    blocks of ``block_b`` warps."""
     keys, vals, node_max, ins_keys, ins_vals = args[:5]
     tag, key = args[10:12]
     nb, npb, ns = keys.shape
@@ -213,7 +241,8 @@ def _stripe_pass(args, *, num_nodes=None):
 
     staged = num_nodes is not None
     kernel = "flix_apply_staged" if staged else "flix_apply"
-    check_smem(kernel, f"{kernel}_smem_bytes", npb, ns, dev)
+    check_smem(kernel, f"{kernel}_smem_bytes", npb, ns, dev,
+               warps=block_b if staged else None)
     outs = (
         torch.empty_like(keys),
         torch.empty_like(vals),
@@ -225,8 +254,8 @@ def _stripe_pass(args, *, num_nodes=None):
         torch.full((n,), NOT_FOUND, dtype=torch.int32, device=dev),
         torch.full((n,), EMPTY, dtype=torch.int32, device=dev),
     )
-    extra = (num_nodes,) if staged else ()
-    launch(kernel, f"{kernel}_launch", dev, *args, *extra, *outs, nb, npb, ns)
+    extra, warps = ((num_nodes,), (block_b,)) if staged else ((), ())
+    launch(kernel, f"{kernel}_launch", dev, *args, *extra, *outs, nb, npb, ns, *warps)
     return outs
 
 
@@ -365,16 +394,20 @@ def flix_apply(
     *,
     max_results: int = DEFAULT_MAX_RESULTS,
     staged: bool = False,
+    block_b: int = 0,
     has_ranges: bool | None = None,
 ):
     """Fused mixed-batch apply.  Same contract as ``core.ops.apply_ops``.
 
     ``staged`` runs the stripe pass on the staged kernel
     (``ExecConfig(pipeline="on")``), else on the single-buffer one; on the
-    CPU both are the one plain version.  The TPU kernel's tiling knobs
-    (``ExecConfig.block_q``, ``block_b``, ``tile_table``) have no
-    counterpart: the kernels size their own grids.  ``has_ranges`` says
-    whether the batch holds RANGE ops, which spares the host a sync.
+    CPU both are the one plain version.  ``block_b`` is the staged kernel's
+    warps a block (``ExecConfig.block_b`` or the tile table's pick; 0 its
+    own count); the single-buffer kernel, a block per bucket, and the plain
+    version do not read it.  The TPU kernel's ``block_q`` (ops a window) has
+    no counterpart: a warp finds its op slice from the batch's per-bucket
+    bounds.  ``has_ranges`` says whether the batch holds RANGE ops, which
+    spares the host a sync.
     """
     cap = state.bucket_capacity
     n = key.shape[0]
@@ -382,7 +415,7 @@ def flix_apply(
 
     args, r = stripe_inputs(state, tag, key, val)
     if staged:
-        outs = flix_apply_staged_pass(state.num_nodes, *args)
+        outs = flix_apply_staged_pass(state.num_nodes, *args, block_b=block_b)
     else:
         outs = flix_apply_pass(*args)
     okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = outs

@@ -12,7 +12,9 @@ port's modes:
 ``"pallas"`` and ``"interpret"`` are the reference's TPU modes and raise
 ``ValueError``.  The TPU tiling knobs ``block_q`` and ``block_b`` (and
 ``grouped_matmul``'s ``block_t``, ``block_f`` and ``max_span``) are
-accepted and ignored: the CUDA kernels choose their own launch shape.
+accepted and ignored: the kernels behind these entry points choose their
+own launch shape (``flix_apply`` here runs the single-buffer kernel; the
+staged one takes ``block_b`` through ``ExecConfig``).
 ``grouped_matmul``'s ``"ref"`` is the port of ``ref.grouped_matmul_ref``,
 whose rows outside every group take the clipped group where the kernel
 leaves them zero (``kernels/grouped_matmul.py``).

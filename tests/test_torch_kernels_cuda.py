@@ -331,6 +331,40 @@ def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, ca
     premise(got, r)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", [(32, 16), (16, 8), (32, 64), (64, 64)])
+def test_staged_kernel_warps_a_block_on_card(cuda, ns, npb):
+    """``block_b``, the staged kernel's warps a block: every count of the
+    autotuner's candidates whose block fits gives the default launch's
+    outputs byte for byte, holds the model's resident warps an SM, and is
+    what ``apply_ops`` hands the launch; one that does not fit raises."""
+    from repro_torch.kernels import autotune as at
+
+    geo = dict(node_size=ns, nodes_per_bucket=npb)
+    st, ops_ = _random_case(np.random.default_rng(ns + npb), 1 << 15, ns, npb, cuda)
+    args = list(fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)[0])
+    want = fa.flix_apply_staged_pass(st.num_nodes, *args)
+    _equal(fa.flix_apply_reference(*args), want, "W = 0 vs plain")
+    cfg = tcore.ExecConfig(impl="fused", pipeline="on", max_results=4096)
+    base = tcore.apply_ops(st, ops_, config=cfg)
+    for w in at.CANDIDATE_BLOCK_B:
+        if at.smem_bytes(128, w, **geo) > at.SMEM_BUDGET_BYTES:
+            with pytest.raises(ValueError, match=rf"npb={npb}, ns={ns}\) with {w} warps"):
+                fa.flix_apply_staged_pass(st.num_nodes, *args, block_b=w)
+            continue
+        before = LAUNCHES["flix_apply_staged"]
+        _equal(want, fa.flix_apply_staged_pass(st.num_nodes, *args, block_b=w), f"W={w}")
+        assert LAUNCHES["flix_apply_staged"] == before + 1
+        assert fa.staged_blocks_per_sm(npb, ns, w, cuda) == at.blocks_per_sm(w, **geo)
+        got = tcore.apply_ops(st, ops_, config=cfg.replace(block_b=w))
+        for f in ("keys", "vals", "node_count", "node_max", "num_nodes"):
+            assert torch.equal(getattr(got[0], f), getattr(base[0], f)), (w, f)
+        for k in base[1]:
+            assert torch.equal(got[1][k], base[1][k]), (w, k)
+    with pytest.raises(ValueError, match="block_b=9"):
+        fa.flix_apply_staged_pass(st.num_nodes, *args, block_b=9)
+
+
 # ---------------------------------------------------------------------------
 # the single-buffer stripe kernel's walk (csrc/flix_apply.cu: persistent
 # blocks, each taking the buckets b, b + grid, ... through a ring of stages;
