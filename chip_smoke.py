@@ -282,7 +282,34 @@ line, and no phase catches its own failure:
                 keys it placed, the count printed).  The baselines are plain
                 torch emulations of the paper's, as the reference's are jnp
                 ones.  Nothing cut;
- 14. the kernels line, the card line, and the result line.
+ 14. lm        — the LM serving path (``repro_torch.models``,
+                ``repro_torch.launch.serve``).  (14a) deepseek-moe-16b at its
+                full width (D 2048, 16 heads of 128, 64 experts top 6 + 2
+                shared, ``moe_d_ff`` 1408, vocab 102,400), depth cut to 2,
+                float32 with capacity factor 8 (TF32 matmuls off): 16
+                ``decode_step``s equal ``forward`` on those tokens within
+                ``rtol=atol=2e-3`` and ``moe_ffn`` on 64 tokens its dense
+                oracle within ``rtol=2e-3, atol=2e-4`` (the reference's own
+                checks, ``tests/test_models.py:53-66``, ``:124-145``).
+                (14b) ``main(["--arch", "deepseek-moe-16b", "--batch", "16",
+                "--steps", "48", "--max-len", "128"])``: full width and
+                depth, float32 parameters (67.5 GB) and cache, bfloat16
+                compute, the driver's own checks, finite logits at every
+                step, the index's live pairs equal a host model, the staged
+                stripe kernel and the fence rows launched by each of the 3
+                update steps (they carry no RANGE op, so the rank count and
+                the gather stay idle); each decode step timed by CUDA
+                events beside the bound of its float32 parameter bytes,
+                each index step by the host clock, peak memory.  (14c)
+                every driver path at reduced widths (``--arch
+                musicgen-medium --reduced --batch 4 --steps 32 --max-len
+                64``): the gateway over a durable index, a second run on
+                its directory (the recovery line), pinned reads
+                (``--snapshot-window 6``, and 2: ``SNAPSHOT_GONE``), page
+                TTLs, tiered residency, 2 shards under a2a on the one card,
+                and the reference engine.  Cut: 14a's depth only; 14b
+                nothing but the driver's own batch and length;
+ 15. the kernels line, the card line, and the result line.
 
 Phase 3k (after 3j): the staged kernel's warps a block, ``ExecConfig.
 block_b``, at 2^20 keys in 32 x 16 and 16 x 8 and 2^18 in 32 x 64: every
@@ -4418,6 +4445,218 @@ def phase_moe(dev, check: KernelCheck):
     }
 
 
+LM_ARCH = "deepseek-moe-16b"
+LM_EXACT_LAYERS = 2  # phase 14a: depth cut 28 -> 2
+LM_EXACT = dict(rtol=2e-3, atol=2e-3)  # decode == forward (tests/test_models.py:53-66)
+LM_ORACLE = dict(rtol=2e-3, atol=2e-4)  # moe_ffn == its dense oracle (:124-145)
+LM_MOE_TOKENS = 64
+LM_SERVE = ["--arch", LM_ARCH, "--batch", "16", "--steps", "48", "--max-len", "128"]
+LM_PATH_BASE = ["--arch", "musicgen-medium", "--reduced", "--batch", "4", "--steps", "32",
+                "--max-len", "64"]
+LM_UPDATE_KERNELS = ("flix_apply_staged", "flix_fence_rows")
+
+
+def lm_close(label, got, want, tol) -> float:
+    """``got`` within ``rtol * |want| + atol`` of ``want`` elementwise, both
+    finite; returns the largest absolute difference."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.allclose(got, want, **tol):
+        raise AssertionError(f"{label}: max_abs_err {err} outside {tol}")
+    return err
+
+
+def phase_lm_exact(dev):
+    """deepseek-moe-16b at its full width, depth cut to 2, in float32 on the
+    card: ``decode_step`` over 16 tokens equals ``forward`` on them, and
+    ``moe_ffn`` on 64 tokens equals its dense oracle (the reference's own
+    checks and tolerances)."""
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: float32 would not be float32")
+    cfg = dataclasses.replace(model.get_config(LM_ARCH), num_layers=LM_EXACT_LAYERS,
+                              dtype="float32", moe_capacity_factor=8.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    log(f"phase 14a: {LM_ARCH} at full width (D {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top {cfg.top_k} + "
+        f"{cfg.num_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}), "
+        f"{cfg.num_layers} layers, float32, capacity factor 8")
+    params = tf.init_params(gen, cfg)
+    B, S = 2, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    with torch.no_grad():
+        full, f_ms = host_ms(lambda: tf.forward(params, cfg, tokens))
+        cache = tf.init_cache(cfg, B, S, dtype=torch.float32, device=dev)
+        err, d_ms = 0.0, []
+        for t in range(S):
+            (logits, cache), ms = host_ms(lambda: tf.decode_step(params, cfg, cache, tokens[:, t]))
+            d_ms.append(ms)
+            err = max(err, lm_close(f"14a decode step {t}", logits, full[:, t], LM_EXACT))
+        log(f"  decode_step x {S} == forward within {LM_EXACT}: max_abs_err {err:.3e} "
+            f"(max|logit| {float(full.abs().max()):.3f}); forward {f_ms:.1f} ms, decode "
+            f"median {median(d_ms):.1f} ms a step (host clock, synced)")
+        lp = {k: v[0] for k, v in params["layers"].items()}
+        x = torch.randn(LM_MOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+        got = moe_lib.moe_ffn(x, lp, cfg)
+        want = moe_lib.moe_ffn_dense_oracle(x, lp, cfg)
+        err = lm_close("14a moe_ffn", got, want, LM_ORACLE)
+    log(f"  moe_ffn on {LM_MOE_TOKENS} tokens == moe_ffn_dense_oracle within {LM_ORACLE}: "
+        f"max_abs_err {err:.3e} (max|y| {float(want.abs().max()):.4f}); "
+        f"model parameters {model.param_count(params):,}")
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def run_serve(argv) -> tuple:
+    """``repro_torch.launch.serve.main(argv)``, its printed lines echoed and
+    returned with the finished index."""
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        idx = serve.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return idx, lines
+
+
+def index_live_pairs(idx) -> dict:
+    """Every (key, slot) a single-device index holds, but its seed key."""
+    from repro_torch.core.state import EMPTY, MAX_VALID
+
+    keys, vals = idx.state.keys.reshape(-1), idx.state.vals.reshape(-1)
+    live = (keys != EMPTY) & (keys != MAX_VALID)
+    return dict(zip(keys[live].tolist(), vals[live].tolist()))
+
+
+def phase_lm_serve(dev, smi):
+    """The serving driver at deepseek-moe-16b's full width and depth: 16
+    sequences, 48 decode steps, float32 parameters and cache, bfloat16
+    compute; each decode step timed by CUDA events, each index step by the
+    host clock (synced).  Returns the index's launches."""
+    import gc
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import kv_index
+    from repro_torch.serve.kv_index import PAGE_BITS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.get_config(LM_ARCH)
+    n_params = model.param_count(model.abstract_params(cfg))
+    bound_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 14b: python -m repro_torch.launch.serve {' '.join(LM_SERVE)} ({smi}); "
+        f"{n_params:,} float32 parameters ({n_params * 4 / 2**30:.1f} GiB), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before")
+    decode, finite, index_ms = [], [], []
+    orig_decode, orig_step = tf.decode_step, kv_index.KVPageIndex.step
+
+    def timed_decode(params, cfg, cache, token):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, cache = orig_decode(params, cfg, cache, token)
+        ev[1].record()
+        decode.append(ev)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    def timed_step(self, *a, **kw):
+        out, ms = host_ms(lambda: orig_step(self, *a, **kw))
+        index_ms.append(ms)
+        return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with patched(tf, "decode_step", timed_decode), \
+            patched(kv_index.KVPageIndex, "step", timed_step):
+        idx, lines = run_serve(LM_SERVE)
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    torch.cuda.synchronize()
+    steps, batch = 48, 16
+    if len(decode) != steps or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"14b: {len(decode)} decode steps, finite {torch.stack(finite)}")
+    want = {(b << PAGE_BITS) | p: b * 1000 + p for b in range(batch) for p in range(3)}
+    if index_live_pairs(idx) != want:
+        raise AssertionError("14b: the index's live pairs differ from the host model")
+    updates = 3  # steps 0, 16 and 32
+    if min(launches[k] for k in LM_UPDATE_KERNELS) < updates:
+        raise AssertionError(f"14b: an update step ran without its kernels: {launches}")
+    ms = [s.elapsed_time(e) for s, e in decode]
+    med = median(ms[1:])
+    log(f"  decode: {med:.2f} ms a step (CUDA events, median of steps 2-{steps}; first "
+        f"{ms[0]:.2f}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}) against the bound "
+        f"{bound_ms:.2f} ms (the float32 parameters read once at 3.35 TB/s; {med / bound_ms:.2f}x); "
+        f"{steps * batch / sum(ms) * 1e3:.1f} tok/s of decode device time")
+    log(f"  index steps (host ms, synced): {', '.join(f'{m:.2f}' for m in index_ms)}; "
+        f"launches {launches}; driver wall {wall:.1f} s; logits finite at every step; live "
+        f"pairs equal the host model ({len(want)}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} ({smi})")
+    del idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_paths(dev):
+    """Every path of the serving driver on the card at reduced widths
+    (musicgen-medium, batch 4, 32 steps): each must pass the driver's own
+    checks.
+    Returns the index's launches."""
+    import tempfile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="flix-lm-") as tmp:
+        runs = [
+            ("gateway, durable", ["--gateway", "--wal-dir", tmp], "gateway exactly-once ✓"),
+            ("durable again", ["--wal-dir", tmp], f"recovered KV index from {tmp}"),
+            ("pinned reads", ["--snapshot-window", "6"], "pinned snapshot read byte-identical"),
+            ("window slides", ["--snapshot-window", "2"], "→ SNAPSHOT_GONE ✓"),
+            ("page TTL", ["--page-ttl", "8"], "page TTLs honored ✓"),
+            ("tiered", ["--device-budget", "500000"], "tiered residency ✓"),
+            ("sharded", ["--shards", "2", "--index-routing", "a2a", "--device", "cuda"],
+             "on 2 shards (a2a)"),
+            ("reference engine", ["--index-impl", "reference"], "page enumeration in order ✓"),
+        ]
+        for label, extra, expect in runs:
+            log(f"phase 14c: {label}: {' '.join(LM_PATH_BASE + extra)}")
+            reset_launches()
+            (_, lines), ms = host_ms(lambda: run_serve(LM_PATH_BASE + extra))
+            counts = {k: LAUNCHES[k] for k in KERNELS}
+            if not any(expect in line for line in lines):
+                raise AssertionError(f"14c {label}: no line holds {expect!r}")
+            kernels = min(counts[k] for k in LM_UPDATE_KERNELS)
+            if (kernels == 0) != (label == "reference engine"):
+                raise AssertionError(f"14c {label}: launches {counts}")
+            for k, c in counts.items():
+                total[k] += c
+            log(f"  {ms:.0f} ms; launches {({k: c for k, c in counts.items() if c})}")
+    return total
+
+
 def merge(measured: dict, new: dict) -> None:
     """Add one phase's kernel measurements to ``measured``.  A kernel that an
     earlier phase measured (the fence rows: phases 4 and 5) keeps that
@@ -4475,6 +4714,9 @@ def main() -> int:
         ("12a", lambda: serve_launches.append(phase_shard(dev, smi))),
         ("12b", lambda: serve_launches.append(phase_shard_durable(dev, smi))),
         ("13", lambda: serve_launches.append(phase_baselines(dev, smi))),
+        ("14a", lambda: phase_lm_exact(dev)),
+        ("14b", lambda: serve_launches.append(phase_lm_serve(dev, smi))),
+        ("14c", lambda: serve_launches.append(phase_lm_paths(dev))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:
