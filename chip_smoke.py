@@ -309,7 +309,33 @@ line, and no phase catches its own failure:
                 TTLs, tiered residency, 2 shards under a2a on the one card,
                 and the reference engine.  Cut: 14a's depth only; 14b
                 nothing but the driver's own batch and length;
- 15. the kernels line, the card line, and the result line.
+ 15. train     — the LM training path (``repro_torch.optim``, ``.data``,
+                ``.train``, the pytree ``CheckpointManager``,
+                ``repro_torch.launch.train``).  (15a) deepseek-moe-16b at
+                full width, depth 2, float32 parameters: in float32 at batch
+                2 x 64, ``remat=True``'s loss and gradients equal
+                ``remat=False``'s (every leaf within 1e-5 of its largest
+                |g|), ``chunked_lm_loss`` one unchunked cross entropy (rel
+                1e-5), one ``train_step`` on the card the same step on the
+                CPU at a reduced width (loss and norm rel 1e-5, moments 1e-4
+                of a leaf's max, parameters within the rate, all but one in
+                a thousand within 1e-3 of it); then the registry's bfloat16
+                compute, batch 8 x 512, ``remat``, ``loss_chunk`` 512, the
+                data pipeline's stream: 12 steps, each timed by CUDA events
+                beside the bound (model FLOPs at 989 TFLOP/s or AdamW's 28
+                bytes a parameter at 3.35 TB/s), loss and grad norm finite
+                at every step, peak memory.  (15b) the driver as a user runs
+                it: ``--arch mamba2-1.3b --batch 8 --seq 64 --steps 6`` (the
+                registry config, 48 layers); musicgen-medium ``--reduced``
+                12 steps, then ``--steps 16`` resuming from step 12; a
+                crash injected after the step-10 checkpoint, whose rerun
+                must end at an uninterrupted run's state (15a's
+                tolerances).  (15c) ``examples/train_lm_torch.py`` (~88M
+                parameters) for 300 steps: the loss must fall by 1 nat.  No
+                FliX kernel may launch in phase 15.  Cut: 15a's depth only;
+                15b's sequence length (64: the SSD's masked exp overflows
+                in the backward pass at chunks of 128 and more);
+ 16. the kernels line, the card line, and the result line.
 
 Phase 3k (after 3j): the staged kernel's warps a block, ``ExecConfig.
 block_b``, at 2^20 keys in 32 x 16 and 16 x 8 and 2^18 in 32 x 64: every
@@ -4657,6 +4683,357 @@ def phase_lm_paths(dev):
     return total
 
 
+TRAIN_LAYERS = 2  # phase 15a: depth cut 28 -> 2 (phase 14a's)
+TRAIN_EXACT_BATCH = (2, 64)  # 15a, float32 checks: batch x seq
+TRAIN_EXACT_CHUNK = 24  # 63 shifted positions: 2 chunks and a tail of 15
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 1  # 15a's checked step: the full rate at once
+TRAIN_BATCH = (8, 512)  # 15a, timed bfloat16 steps
+TRAIN_STEPS = 12
+TRAIN_LOSS_RTOL = 1e-5  # float32 sums in other orders (a 102,400-way logsumexp)
+TRAIN_GRAD_REL = 1e-5  # of a leaf's largest |g|: atomics in index_add_ / embedding backward
+TRAIN_MOMENT_REL = 1e-4  # of a leaf's largest |m|, |v| after a step
+TRAIN_SSM = ["--arch", "mamba2-1.3b", "--batch", "8", "--seq", "64", "--steps", "6"]
+TRAIN_RESUME = ["--arch", "musicgen-medium", "--reduced", "--batch", "4", "--seq", "64",
+                "--ckpt-every", "10"]
+TRAIN_CRASH_STEP = 10  # 15b: the checkpoint after which the run dies
+EXAMPLE_STEPS = 300  # 15c
+EXAMPLE_MARGIN = 1.0  # 15c: nats the loss must fall by, from ~ln(8192) = 9.01
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+
+
+class _Crash(Exception):
+    """The failure phase 15b injects after a checkpoint."""
+
+
+def hold_close(label, got, want, rel) -> float:
+    """Each leaf within ``rel`` of its largest |want| (compared in float32 on
+    ``want``'s device); returns the worst ratio of error to that scale."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().to(w.device, torch.float32), w.detach().float()
+        if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"{label}: leaf {i} non-finite")
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((g - w).abs().max()) / scale
+        if err > rel:
+            raise AssertionError(f"{label}: leaf {i} off by {err:.3e} of max|want| > {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def hold_train_state(label, got, want, lr_sum: float) -> str:
+    """Two train states after the same steps: moments within
+    ``TRAIN_MOMENT_REL``; parameters within ``lr_sum`` (where a gradient is
+    within rounding of zero its Adam direction may differ, and the
+    parameter by up to the rate a step), and all but one in a thousand of
+    a leaf within ``1e-3 * lr_sum``."""
+    from repro_torch.pytree import tree_leaves
+
+    if int(got.opt.step) != int(want.opt.step):
+        raise AssertionError(f"{label}: steps {int(got.opt.step)} != {int(want.opt.step)}")
+    m = hold_close(f"{label} m", tree_leaves(got.opt.m), tree_leaves(want.opt.m),
+                   TRAIN_MOMENT_REL)
+    v = hold_close(f"{label} v", tree_leaves(got.opt.v), tree_leaves(want.opt.v),
+                   TRAIN_MOMENT_REL)
+    worst, off = 0.0, 0
+    for g, w in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        d = (g.detach().to(w.device, torch.float32) - w.float()).abs()
+        n_off = int((d > 1e-3 * lr_sum).sum())
+        if float(d.max()) > lr_sum or n_off > max(1, d.numel() // 1000):
+            raise AssertionError(f"{label}: parameters off by {float(d.max()):.3e} "
+                                 f"({n_off} of {d.numel()} beyond 1e-3 x {lr_sum:.3e})")
+        worst, off = max(worst, float(d.max())), off + n_off
+    return (f"m within {m:.2e}, v within {v:.2e} of max (tol {TRAIN_MOMENT_REL}); "
+            f"parameters within {worst:.3e} (tol lr sum {lr_sum:.3e}), {off} beyond "
+            f"1e-3 of it")
+
+
+def train_step_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one train step under remat, counted from the
+    parameter tensors: each layer and the loss head run forward twice and
+    backward once (4x the forward's FLOPs); attention over all S x S
+    scores as the port computes them; the MoE layer's capacity windows at
+    E x C slots."""
+    from repro_torch.models import model
+    from repro_torch.models.moe import capacity
+
+    p = model.abstract_params(cfg)
+    lp = {k: v[0] for k, v in p["layers"].items()}
+    T = B * S
+    dense = ("wq", "wk", "wv", "wo", "shared_gate", "shared_up", "shared_down", "router")
+    if cfg.family != "moe":
+        dense += ("w_gate", "w_up", "w_down")
+    layer = 2 * T * sum(lp[k].numel() for k in dense if k in lp)
+    layer += 4 * B * S * S * cfg.num_heads * cfg.resolved_head_dim
+    if cfg.family == "moe":
+        C = capacity(T, cfg.top_k, cfg.num_experts, cfg.moe_capacity_factor)
+        layer += 2 * C * sum(lp[k].numel() for k in ("w_gate", "w_up", "w_down"))
+    head = 2 * B * (S - 1) * cfg.d_model * cfg.vocab_size
+    return 4.0 * (cfg.num_layers * layer + head)
+
+
+def adamw_bytes(n_params: int) -> int:
+    """AdamW over float32 leaves: read p, g, m, v, write p, m, v."""
+    return 28 * n_params
+
+
+def run_train(argv) -> tuple:
+    """``repro_torch.launch.train.main(argv)``, its printed lines echoed and
+    returned with the final state."""
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return state, lines
+
+
+def logged_losses(label, lines) -> list[float]:
+    losses = [float(line.split()[3]) for line in lines if line.startswith("step ")]
+    if not losses or not all(math.isfinite(x) for x in losses) or lines[-1] != "done":
+        raise AssertionError(f"{label}: lines {lines}")
+    return losses
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_train_exact(dev):
+    """deepseek-moe-16b at full width, depth 2, float32 parameters and
+    compute on the card: remat's gradients equal no remat's,
+    ``chunked_lm_loss`` one unchunked cross entropy, and one train step on
+    the card the same step on the CPU at a reduced width."""
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import softmax_cross_entropy_sharded
+    from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.train import step as tstep
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: float32 would not be float32")
+    free_card()
+    cfg = dataclasses.replace(model.get_config(LM_ARCH), num_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    params = tf.init_params(gen, cfg)
+    B, S = TRAIN_EXACT_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    log(f"phase 15a: {LM_ARCH} at full width (D {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top {cfg.top_k} + "
+        f"{cfg.num_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}), "
+        f"{cfg.num_layers} layers, {model.param_count(params):,} float32 parameters; "
+        f"checks at batch {B} x {S}, float32 compute")
+
+    def value_and_grad(remat):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        fn = tstep.make_loss_fn(cfg, remat=remat, loss_chunk=TRAIN_EXACT_CHUNK)
+        loss = fn(tree_unflatten(params, leaves), batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    (on_loss, on_g), on_ms = host_ms(lambda: value_and_grad(True))
+    (off_loss, off_g), off_ms = host_ms(lambda: value_and_grad(False))
+    lerr = abs(float(on_loss) - float(off_loss)) / abs(float(off_loss))
+    if lerr > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"15a remat loss {float(on_loss)} != {float(off_loss)}")
+    gerr = hold_close("15a remat gradients", on_g, off_g, TRAIN_GRAD_REL)
+    log(f"  remat=True == remat=False: loss {float(on_loss):.6f} (rel err {lerr:.2e}, tol "
+        f"{TRAIN_LOSS_RTOL}), every gradient leaf within {gerr:.2e} of its max|g| (tol "
+        f"{TRAIN_GRAD_REL}); loss + gradients {on_ms:.0f} ms with remat, {off_ms:.0f} without "
+        f"(host clock, synced)")
+    del on_g, off_g
+    with torch.no_grad():
+        hidden = tf.forward_hidden(params, cfg, batch["tokens"])[:, :-1]
+        tg = batch["targets"][:, 1:]
+        mask = torch.ones(tg.shape, dtype=torch.float32, device=dev)
+        chunked = tstep.chunked_lm_loss(hidden, params["lm_head"], tg, mask,
+                                        chunk=TRAIN_EXACT_CHUNK)
+        whole = softmax_cross_entropy_sharded(hidden @ params["lm_head"], tg, mask)
+    cerr = abs(float(chunked) - float(whole)) / abs(float(whole))
+    if cerr > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"15a chunked loss {float(chunked)} != {float(whole)}")
+    log(f"  chunked_lm_loss (chunks of {TRAIN_EXACT_CHUNK} over {S - 1}, a tail of "
+        f"{(S - 1) % TRAIN_EXACT_CHUNK}) == one unchunked logsumexp cross entropy: "
+        f"{float(chunked):.6f}, rel err {cerr:.2e} (tol {TRAIN_LOSS_RTOL})")
+    del params, hidden
+
+    small = cfg.reduced()
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(SEED + 16)
+    cpu_state = tstep.train_state_init(cpu_gen, small, device="cpu")
+    card_state = tree_map(lambda t: t.to(dev, copy=True), cpu_state)
+    kw = dict(lr=TRAIN_LR, warmup=TRAIN_WARMUP, loss_chunk=TRAIN_EXACT_CHUNK)
+    small_batch = {k: v % small.vocab_size for k, v in batch.items()}
+    card_state, cm = tstep.make_train_step(small, **kw)(card_state, small_batch)
+    cpu_state, pm = tstep.make_train_step(small, **kw)(
+        cpu_state, {k: v.cpu() for k, v in small_batch.items()})
+    for k in ("loss", "grad_norm"):
+        err = abs(float(cm[k]) - float(pm[k])) / abs(float(pm[k]))
+        if err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"15a step {k}: card {float(cm[k])} cpu {float(pm[k])}")
+    lr_1 = float(tstep.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, 10_000)(cm["step"]))
+    held = hold_train_state("15a card step vs CPU step", card_state, cpu_state, lr_1)
+    log(f"  one train_step on the card == the same step on the CPU at reduced width "
+        f"(D {small.d_model}, {small.num_experts} experts): loss {float(cm['loss']):.6f}, "
+        f"grad norm {float(cm['grad_norm']):.6f} (rel tol {TRAIN_LOSS_RTOL}); {held}")
+
+
+def phase_train_timed(dev, smi):
+    """deepseek-moe-16b at full width, depth 2, float32 parameters, the
+    registry's bfloat16 compute: 12 steps on the data pipeline's stream,
+    each timed by CUDA events, beside the step's bound."""
+    from repro_torch.data import DataState, make_batch_iterator
+    from repro_torch.models import model
+    from repro_torch.train import step as tstep
+
+    free_card()
+    cfg = dataclasses.replace(model.get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    state = tstep.train_state_init(gen, cfg)
+    n = model.param_count(state.params)
+    B, S = TRAIN_BATCH
+    flops = train_step_flops(cfg, B, S)
+    bound_ms = max(flops / BF16_FLOPS, adamw_bytes(n) / HBM_BYTES_PER_S) * 1e3
+    step_fn = tstep.make_train_step(cfg, remat=True, loss_chunk=512)
+    it = make_batch_iterator(cfg.vocab_size, S, B, state=DataState(seed=SEED), device=dev)
+    events, metrics = [], []
+    t0 = time.perf_counter()
+    for step, batch in it:
+        if step >= TRAIN_STEPS:
+            break
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step_fn(state, batch)
+        ev[1].record()
+        events.append(ev)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    med = median(ms[1:])
+    for i, (m, t) in enumerate(zip(metrics, ms)):
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"15a step {i}: loss {loss}, grad norm {gn}")
+        log(f"  step {i:2d} loss {loss:.4f} grad norm {gn:.4f} ({t:.2f} ms)")
+    log(f"  train step (bfloat16 compute, batch {B} x {S}, remat, loss_chunk 512): {med:.2f} ms "
+        f"(CUDA events, median of steps 2-{TRAIN_STEPS}; first {ms[0]:.2f}, min "
+        f"{min(ms[1:]):.2f}, max {max(ms[1:]):.2f}) against the bound {bound_ms:.2f} ms "
+        f"({med / bound_ms:.2f}x; the larger of {flops / 1e12:.2f} TFLOP at 989 TFLOP/s = "
+        f"{flops / BF16_FLOPS * 1e3:.2f} ms and AdamW's {adamw_bytes(n) / 1e9:.1f} GB at "
+        f"3.35 TB/s = {adamw_bytes(n) / HBM_BYTES_PER_S * 1e3:.2f} ms); "
+        f"{B * S / med * 1e3:,.0f} tok/s; {n:,} parameters; wall {wall:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+
+
+def phase_train_driver(dev):
+    """The training driver as a user runs it: mamba2-1.3b at its full config,
+    then musicgen-medium reduced through a checkpoint, a resume, and a
+    crash after the step-10 checkpoint whose rerun must end at an
+    uninterrupted run's state."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import model
+    from repro_torch.optim import cosine_schedule
+
+    free_card()
+    cfg = model.get_config("mamba2-1.3b")
+    log(f"phase 15b: python -m repro_torch.launch.train {' '.join(TRAIN_SSM)}; "
+        f"{cfg.num_layers} layers, D {cfg.d_model}, "
+        f"{model.param_count(model.abstract_params(cfg)):,} parameters")
+    _, wall = host_ms(lambda: logged_losses("15b mamba2", run_train(TRAIN_SSM)[1]))
+    log(f"  {wall / 1e3:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    free_card()
+    with tempfile.TemporaryDirectory(prefix="flix-train-") as tmp:
+        resume = TRAIN_RESUME + ["--ckpt-dir", f"{tmp}/resume"]
+        log(f"phase 15b: {' '.join(resume)} --steps 12, then --steps 16")
+        logged_losses("15b first run", run_train(resume + ["--steps", "12"])[1])
+        _, lines = run_train(resume + ["--steps", "16"])
+        logged_losses("15b resumed run", lines)
+        if lines[0] != "resumed from step 12":
+            raise AssertionError(f"15b: the rerun printed {lines[0]!r}")
+        argv = TRAIN_RESUME + ["--steps", "16"]
+        log(f"phase 15b: {' '.join(argv)} whole, then crashed after the step-"
+            f"{TRAIN_CRASH_STEP} checkpoint and rerun")
+        whole, _ = run_train(argv + ["--ckpt-dir", f"{tmp}/whole"])
+        save = CheckpointManager.save
+
+        def crash_after(self, step, tree, **kw):
+            save(self, step, tree, **kw)
+            if step == TRAIN_CRASH_STEP:
+                self.wait()  # the checkpoint is committed, then the run dies
+                raise _Crash
+
+        crashed = argv + ["--ckpt-dir", f"{tmp}/crashed"]
+        try:
+            with patched(CheckpointManager, "save", crash_after):
+                run_train(crashed)
+            raise AssertionError("15b: the injected crash did not happen")
+        except _Crash:
+            log(f"  crashed after the step-{TRAIN_CRASH_STEP} checkpoint, as injected")
+        got, lines = run_train(crashed)
+        if lines[0] != f"resumed from step {TRAIN_CRASH_STEP}":
+            raise AssertionError(f"15b: the rerun printed {lines[0]!r}")
+        # the card's atomics make no two runs bitwise equal: every step counts
+        lr = cosine_schedule(3e-4, 100, 16)
+        lr_sum = sum(float(lr(torch.tensor(s))) for s in range(1, 17))
+        log(f"  rerun == uninterrupted run: {hold_train_state('15b', got, whole, lr_sum)}")
+
+
+def phase_train_example(dev):
+    """``examples/train_lm_torch.py`` (the reference example's ~100M
+    model) for 300 steps on the card: its loss must fall by the margin."""
+    import importlib.util
+    import io
+
+    free_card()
+    path = ROOT / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    log(f"phase 15c: python examples/train_lm_torch.py --steps {EXAMPLE_STEPS}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (first, last), ms = host_ms(lambda: example.main(["--steps", str(EXAMPLE_STEPS)]))
+    for line in buf.getvalue().strip().splitlines():
+        log(f"  | {line}")
+    if not (math.isfinite(last) and last < first - EXAMPLE_MARGIN):
+        raise AssertionError(f"15c: loss {first} -> {last}, not below by {EXAMPLE_MARGIN}")
+    log(f"  loss fell {first:.4f} -> {last:.4f} (ln 8192 = {math.log(8192):.4f}), by "
+        f"{first - last:.4f} > the margin {EXAMPLE_MARGIN}; {ms / 1e3:.1f} s, "
+        f"{ms / EXAMPLE_STEPS:.1f} ms a step by the host clock")
+
+
+def no_kernel_launched(label, run) -> None:
+    """Run one part of phase 15 between a reset and a read of the launch
+    counts: the training path runs no kernel of ours (the reference
+    trainer reaches no Pallas kernel)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    run()
+    launched = {k: LAUNCHES[k] for k in KERNELS if LAUNCHES[k]}
+    if launched:
+        raise AssertionError(f"{label}: the training path launched {launched}")
+    log(f"  {label} launched none of the FliX kernels, as designed")
+    free_card()
+
+
 def merge(measured: dict, new: dict) -> None:
     """Add one phase's kernel measurements to ``measured``.  A kernel that an
     earlier phase measured (the fence rows: phases 4 and 5) keeps that
@@ -4717,6 +5094,10 @@ def main() -> int:
         ("14a", lambda: phase_lm_exact(dev)),
         ("14b", lambda: serve_launches.append(phase_lm_serve(dev, smi))),
         ("14c", lambda: serve_launches.append(phase_lm_paths(dev))),
+        ("15a", lambda: no_kernel_launched("15a", lambda: (phase_train_exact(dev),
+                                                           phase_train_timed(dev, smi)))),
+        ("15b", lambda: no_kernel_launched("15b", lambda: phase_train_driver(dev))),
+        ("15c", lambda: no_kernel_launched("15c", lambda: phase_train_example(dev))),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

@@ -1,6 +1,6 @@
 """Durable FliX (port of ``repro/checkpoint``): canonical snapshots, the
-write-ahead log and crash recovery.  The reference's pytree checkpoints of
-the LM trainer are not ported here."""
+write-ahead log and crash recovery; and the LM trainer's pytree
+checkpoints (``save_pytree``, ``restore_pytree``, ``CheckpointManager``)."""
 
 from repro_torch.checkpoint.durable import (
     DurableFliX,
@@ -11,7 +11,12 @@ from repro_torch.checkpoint.durable import (
     TieredEngine,
     load_snapshot_chain,
 )
-from repro_torch.checkpoint.manager import tmp_sibling
+from repro_torch.checkpoint.manager import (
+    CheckpointManager,
+    restore_pytree,
+    save_pytree,
+    tmp_sibling,
+)
 from repro_torch.checkpoint.serialize import (
     SnapshotFormatError,
     canonical_state_bytes,
@@ -22,6 +27,7 @@ from repro_torch.checkpoint.serialize import (
 from repro_torch.checkpoint.wal import WALCorruptionError, WriteAheadLog, replay
 
 __all__ = [
+    "CheckpointManager",
     "DurableFliX",
     "EngineBase",
     "LocalEngine",
@@ -35,6 +41,8 @@ __all__ = [
     "load_snapshot_chain",
     "parse_canonical",
     "replay",
+    "restore_pytree",
+    "save_pytree",
     "state_digest",
     "state_from_pairs",
     "tmp_sibling",

@@ -18,6 +18,7 @@ from repro_torch.core.state import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import SHAPES, ModelConfig
 from repro_torch.models.frontends import prefix_spec
+from repro_torch.pytree import tree_leaves, tree_map
 
 
 def get_config(name: str) -> ModelConfig:
@@ -36,27 +37,8 @@ def init_params(rng, cfg: ModelConfig, param_dtype=torch.float32, *, device=None
     return transformer.init_params(rng, cfg, param_dtype, device=device)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def param_count(params) -> int:
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def abstract_params(cfg: ModelConfig, param_dtype=torch.float32):
@@ -107,7 +89,7 @@ def params_from_numpy(tree, device=None):
             t = torch.from_numpy(a)
         return t.to(dev)
 
-    return _map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 class DecoderLM(nn.Module):

@@ -14,9 +14,11 @@ One parameter/forward scheme spans the families:
 The API is the reference's, functional, on a dict of tensors in its pytree
 layout: ``params["layers"][name]`` is stacked ``[L, ...]`` as
 ``jax.vmap(layer_init)`` stacks it.  The reference's scan and its unrolled
-loop are the same Python loop over layers here; ``remat`` is accepted and
-does nothing without autograd.  Decode keeps per-layer caches ragged (ring
-buffers for SWA/local layers, full for global) and writes them in place.
+loop are the same Python loop over layers here; ``remat`` runs each layer's
+step (and, for the hybrid family, each group's step) under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.  Decode
+keeps per-layer caches ragged (ring buffers for SWA/local layers, full for
+global) and writes them in place.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.state import resolve_device
 from repro_torch.models import moe as moe_lib
@@ -234,6 +237,23 @@ def _ssm_layer(x, lp, cfg):
     return x + y
 
 
+def check_act_spec(act_spec) -> None:
+    if act_spec is not None:
+        raise ValueError(
+            "act_spec is a sharding constraint on the residual stream; the "
+            "port runs on one device and takes None (the sharding slice, "
+            "sharding.py, is not ported)"
+        )
+
+
+def _unstack(layers: dict, n: int) -> list[dict]:
+    """Per-layer views of the stacked ``[L, ...]`` weights.  One ``unbind``
+    a weight, so that autograd stacks their gradients once (indexing layer
+    by layer would add a zero-filled ``[L, ...]`` gradient per layer)."""
+    cols = {k: v.unbind(0) for k, v in layers.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
 def forward_hidden(
     params: Params,
     cfg: ModelConfig,
@@ -247,17 +267,15 @@ def forward_hidden(
 ) -> torch.Tensor:
     """Full-sequence forward → post-final-norm hidden [B, S_total, D].
 
-    ``layer_loop`` ("scan" or "unroll") and ``remat`` are the reference's
-    options; both loops are one Python loop here, and ``remat`` waits for
-    the training slice.  ``act_spec`` is a sharding constraint on the
-    residual stream: the port takes only ``None``.
+    ``layer_loop`` ("scan" or "unroll") is the reference's option; both
+    loops are one Python loop here.  ``remat`` recomputes each layer step
+    in the backward pass instead of saving its activations
+    (``torch.utils.checkpoint``); the cast of the layer's weights to the
+    compute dtype is inside the step, so those copies are recomputed too.
+    ``act_spec`` is a sharding constraint on the residual stream: the port
+    takes only ``None``.
     """
-    if act_spec is not None:
-        raise ValueError(
-            "act_spec is a sharding constraint on the residual stream; the "
-            "port runs on one device and takes None (the sharding slice, "
-            "sharding.py, is not ported)"
-        )
+    check_act_spec(act_spec)
     compute = _compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(compute)
     prefix_len = 0
@@ -266,19 +284,43 @@ def forward_hidden(
         x = torch.cat([prefix_embeds.to(compute), x], dim=1)
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)
-    glob = torch.as_tensor(layer_is_global(cfg), device=x.device)
+    glob = layer_is_global(cfg)
 
+    def run(fn, *args):
+        if not remat:
+            return fn(*args)
+        # the steps draw no random numbers: no RNG state to stash
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family in ("ssm", "hybrid"):
-        layers = params["layers"]
-        shared = _cast(params["shared_attn"], compute) if cfg.family == "hybrid" else None
-        for i in range(cfg.num_layers):
-            x = _ssm_layer(x, _cast(_layer(layers, i), compute), cfg)
-            if shared is not None and (i + 1) % cfg.attn_every == 0:
-                x = _dense_layer(x, shared, cfg, positions, True, prefix_len, q_chunk)
+        def ssm_step(h, lp):
+            return _ssm_layer(h, _cast(lp, compute), cfg)
+
+        if cfg.family == "ssm":
+            for lp in layers:
+                x = run(ssm_step, x, lp)
+        else:
+            g = cfg.attn_every
+
+            def group_step(h, group, shared):
+                for lp in group:
+                    h = run(ssm_step, h, lp)
+                return _dense_layer(h, _cast(shared, compute), cfg, positions, True,
+                                    prefix_len, q_chunk)
+
+            n_groups = cfg.num_layers // g
+            for i in range(n_groups):
+                x = run(group_step, x, layers[i * g:(i + 1) * g], params["shared_attn"])
+            for lp in layers[n_groups * g:]:  # a tail shorter than a group, as decode
+                x = run(ssm_step, x, lp)
     else:
-        for i in range(cfg.num_layers):
-            lp = _cast(_layer(params["layers"], i), compute)
-            x = _dense_layer(x, lp, cfg, positions, glob[i], prefix_len, q_chunk)
+        def step(h, lp, is_global):
+            return _dense_layer(h, _cast(lp, compute), cfg, positions, is_global,
+                                prefix_len, q_chunk)
+
+        for i, lp in enumerate(layers):
+            x = run(step, x, lp, bool(glob[i]))
 
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
