@@ -335,7 +335,32 @@ line, and no phase catches its own failure:
                 FliX kernel may launch in phase 15.  Cut: 15a's depth only;
                 15b's sequence length (64: the SSD's masked exp overflows
                 in the backward pass at chunks of 128 and more);
- 16. the kernels line, the card line, and the result line.
+ 16. sharded — the sharded LM scaffolding (``repro_torch.sharding``,
+                ``launch/mesh.py``, ``models/moe_a2a.py``,
+                ``launch/steps.py``, ``launch/dryrun.py``,
+                ``launch/roofline.py``) on a 4 x 2 mesh of the one card
+                (``make_mesh_auto((4, 2), ..., ["cuda:0"] * 8)``).  (16a)
+                deepseek-moe-16b at full width, depth 2, float32, capacity
+                factor 8: ``moe_ffn_a2a`` on 256 tokens against
+                ``moe_ffn_dense_oracle`` within 2e-4; then
+                ``build_cell(..., moe_impl="a2a")``'s train step at batch 4
+                x 64 (the smallest batch the data axis divides) against the
+                single-device ``train_step`` on the same state (loss within
+                1e-3, grad norm rel 1e-4, 15a's moment and parameter
+                tolerances).  (16b) the a2a train cell at 8 x 512, the
+                registry's bfloat16 compute: 6 steps timed by CUDA events
+                beside 15a's single-device step, tok/s, peak memory, the
+                collective bytes by kind a step; the prefill (8 x 512,
+                ``moe_impl="auto"``: a2a) and decode (batch 16, max-len 128,
+                auto: the gather path under ``dispatch_spec``) cells at depth
+                2, capacity factor 8, against the single-device forward and
+                ``decode_step``.  (16c) the dry run of deepseek-moe-16b
+                ``train_4k`` on a 16 x 16 mesh of meta positions, its JSON
+                and the roofline row with the H100's constants.  No FliX
+                kernel may launch in phase 16.  Cuts: depth 2 (16a, 16b),
+                16b's shape (8 x 512 of 256 x 4096), eight positions on one
+                card;
+ 17. the kernels line, the card line, and the result line.
 
 Phase 3k (after 3j): the staged kernel's warps a block, ``ExecConfig.
 block_b``, at 2^20 keys in 32 x 16 and 16 x 8 and 2^18 in 32 x 64: every
@@ -4701,8 +4726,28 @@ EXAMPLE_MARGIN = 1.0  # 15c: nats the loss must fall by, from ~ln(8192) = 9.01
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 
 
+SHARD_MESH = (4, 2)  # phase 16: data x model positions, all on the one card
+SHARD_EXACT_BATCH = (4, 64)  # 16a: the smallest batch the data axis divides
+SHARD_A2A_TOKENS = 256  # 16a: moe_ffn_a2a against the dense oracle
+SHARD_ORACLE_ATOL = 2e-4  # tests/test_distributed.py:249
+SHARD_LOSS_ATOL = 1e-3  # tests/test_distributed.py:155
+SHARD_GNORM_RTOL = 1e-4  # float32 sums of the same products in other orders
+SHARD_STEPS = 6  # 16b
+SHARD_PREFILL = (8, 512)  # 16b: batch x seq
+SHARD_DECODE = (16, 128, 8)  # 16b: batch, max-len, steps
+SHARD_BF16_REL = 3e-2  # 16b: bfloat16 logits, of max|want| (tests/test_torch_models.py)
+TIMED: dict = {}  # phase 15a's median step, read by 16b
+
+
 class _Crash(Exception):
     """The failure phase 15b injects after a checkpoint."""
+
+
+def whole_leaf(t):
+    """A tensor, or a leaf placed on a mesh gathered whole (one at a time)."""
+    from repro_torch import sharding
+
+    return t.tensor() if isinstance(t, sharding.Placed) else t
 
 
 def hold_close(label, got, want, rel) -> float:
@@ -4710,7 +4755,7 @@ def hold_close(label, got, want, rel) -> float:
     ``want``'s device); returns the worst ratio of error to that scale."""
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        g, w = g.detach().to(w.device, torch.float32), w.detach().float()
+        g, w = whole_leaf(g).detach().to(w.device, torch.float32), w.detach().float()
         if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
             raise AssertionError(f"{label}: leaf {i} non-finite")
         scale = max(float(w.abs().max()), 1e-30)
@@ -4737,7 +4782,7 @@ def hold_train_state(label, got, want, lr_sum: float) -> str:
                    TRAIN_MOMENT_REL)
     worst, off = 0.0, 0
     for g, w in zip(tree_leaves(got.params), tree_leaves(want.params)):
-        d = (g.detach().to(w.device, torch.float32) - w.float()).abs()
+        d = (whole_leaf(g).detach().to(w.device, torch.float32) - w.float()).abs()
         n_off = int((d > 1e-3 * lr_sum).sum())
         if float(d.max()) > lr_sum or n_off > max(1, d.numel() // 1000):
             raise AssertionError(f"{label}: parameters off by {float(d.max()):.3e} "
@@ -4924,6 +4969,7 @@ def phase_train_timed(dev, smi):
     wall = time.perf_counter() - t0
     ms = [a.elapsed_time(b) for a, b in events]
     med = median(ms[1:])
+    TIMED["15a"] = (med, torch.cuda.max_memory_allocated())
     for i, (m, t) in enumerate(zip(metrics, ms)):
         loss, gn = float(m["loss"]), float(m["grad_norm"])
         if not (math.isfinite(loss) and math.isfinite(gn)):
@@ -5019,10 +5065,285 @@ def phase_train_example(dev):
         f"{ms / EXAMPLE_STEPS:.1f} ms a step by the host clock")
 
 
+@contextlib.contextmanager
+def shape_cut(name: str, batch: int, seq: int):
+    """``SHAPES[name]`` cut to ``batch`` x ``seq`` while ``build_cell`` reads it."""
+    from repro_torch.models import config as mc
+
+    old = mc.SHAPES[name]
+    mc.SHAPES[name] = dict(old, global_batch=batch, seq_len=seq)
+    try:
+        yield
+    finally:
+        mc.SHAPES[name] = old
+
+
+def shard_mesh(dev):
+    from repro_torch.launch.mesh import make_mesh_auto
+
+    return make_mesh_auto(SHARD_MESH, ("data", "model"), [dev] * math.prod(SHARD_MESH))
+
+
+def collective_line(counts: dict, steps: int = 1) -> str:
+    return ", ".join(f"{k} {v['count'] // steps} x, {v['bytes'] / steps / 1e9:.3f} GB"
+                     for k, v in sorted(counts.items())) or "none"
+
+
+def phase_shard_lm_exact(dev):
+    """deepseek-moe-16b at full width, depth 2, float32, capacity factor 8,
+    on a 4 x 2 mesh of the one card: ``moe_ffn_a2a`` against the dense
+    oracle; the a2a train cell's step against the single-device step on
+    the same state."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe_a2a import moe_ffn_a2a
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.pytree import tree_map
+    from repro_torch.train import step as tstep
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: float32 would not be float32")
+    free_card()
+    mesh = shard_mesh(dev)
+    over = dict(dtype="float32", moe_capacity_factor=8.0)
+    B, S = SHARD_EXACT_BATCH
+    with shape_cut("train_4k", B, S):
+        cell = build_cell(LM_ARCH, "train_4k", mesh, depth_periods=TRAIN_LAYERS,
+                          moe_impl="a2a", loss_chunk=TRAIN_EXACT_CHUNK, overrides=over)
+    from repro_torch.pytree import tree_leaves
+
+    cfg = dataclasses.replace(cell.cfg, moe_impl="gather", moe_mesh=None)
+    full = dataclasses.replace(model.get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    if ([t.shape for t in tree_leaves(model.abstract_params(cfg))]
+            != [t.shape for t in tree_leaves(model.abstract_params(full))]):
+        raise AssertionError("16a: padded(2) changed deepseek-moe-16b's parameter layout")
+    log(f"phase 16a: {LM_ARCH} at full width, {cfg.num_layers} layers, float32, capacity "
+        f"factor 8, on a {SHARD_MESH[0]} x {SHARD_MESH[1]} mesh of one card ({mesh})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+    state = tstep.train_state_init(gen, cfg)
+    lp = {k: v[0] for k, v in state.params["layers"].items()}
+    x = torch.randn(SHARD_A2A_TOKENS, cfg.d_model, generator=gen, device=dev)
+    with torch.no_grad():
+        sh.reset_collectives()
+        got, a2a_ms = host_ms(lambda: moe_ffn_a2a(x, lp, cell.cfg, mesh))
+        a2a = sh.collective_counts()
+        want = moe_lib.moe_ffn_dense_oracle(x, lp, cfg)
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= SHARD_ORACLE_ATOL):
+        raise AssertionError(f"16a moe_ffn_a2a off the dense oracle by {err:.3e}")
+    log(f"  moe_ffn_a2a on {SHARD_A2A_TOKENS} tokens ({SHARD_A2A_TOKENS // mesh.size} a "
+        f"position, {cfg.num_experts // SHARD_MESH[1]} experts a model block) == "
+        f"moe_ffn_dense_oracle: max_abs_err {err:.3e} (tol {SHARD_ORACLE_ATOL}, "
+        f"max|y| {float(want.abs().max()):.4f}); {a2a_ms:.1f} ms (host clock, synced); "
+        f"{collective_line(a2a)}")
+    del lp, x, got, want
+
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    ref = tree_map(torch.clone, state)
+    ref, rm = tstep.make_train_step(cfg, loss_chunk=TRAIN_EXACT_CHUNK)(ref, batch)
+    placed = sh.place(state, cell.jitted.in_specs[0], mesh)
+    del state
+    free_card()
+    sh.reset_collectives()
+    (placed, pm), ms = host_ms(lambda: cell.jitted(placed, batch))
+    counts = sh.collective_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lerr = abs(float(pm["loss"]) - float(rm["loss"]))
+    gerr = abs(float(pm["grad_norm"]) - float(rm["grad_norm"])) / abs(float(rm["grad_norm"]))
+    if lerr > SHARD_LOSS_ATOL or gerr > SHARD_GNORM_RTOL:
+        raise AssertionError(f"16a: loss {float(pm['loss'])} vs {float(rm['loss'])}, grad "
+                             f"norm {float(pm['grad_norm'])} vs {float(rm['grad_norm'])}")
+    lr_1 = float(cosine_schedule(3e-4, 100, 10_000)(rm["step"]))
+    held = hold_train_state("16a sharded step vs single-device step", placed, ref, lr_1)
+    log(f"  the a2a train cell's step at batch {B} x {S} == the single-device train_step on "
+        f"the same state: loss {float(pm['loss']):.6f} vs {float(rm['loss']):.6f} (abs err "
+        f"{lerr:.2e}, tol {SHARD_LOSS_ATOL}), grad norm rel err {gerr:.2e} (tol "
+        f"{SHARD_GNORM_RTOL}); {held}; {ms:.0f} ms (host clock, synced); peak device "
+        f"memory {peak / 2**30:.2f} GiB; {collective_line(counts)}")
+
+
+def phase_shard_lm_timed(dev, smi):
+    """The a2a train cell at 8 x 512 in the registry's bfloat16 compute, 6
+    steps by CUDA events beside 15a's single-device step; the prefill and
+    decode cells against the single-device forward and decode_step."""
+    from repro_torch import sharding as sh
+    from repro_torch.data import DataState, make_batch_iterator
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model
+    from repro_torch.models import transformer as tf
+    from repro_torch.pytree import tree_map
+    from repro_torch.train import step as tstep
+
+    free_card()
+    mesh = shard_mesh(dev)
+    B, S = TRAIN_BATCH
+    with shape_cut("train_4k", B, S):
+        cell = build_cell(LM_ARCH, "train_4k", mesh, depth_periods=TRAIN_LAYERS,
+                          moe_impl="a2a")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    state = tstep.train_state_init(gen, dataclasses.replace(cell.cfg, moe_impl="gather",
+                                                            moe_mesh=None))
+    n = model.param_count(state.params)
+    placed = sh.place(state, cell.jitted.in_specs[0], mesh)
+    del state
+    log(f"phase 16b: build_cell({LM_ARCH!r}, 'train_4k' cut to {B} x {S}, {SHARD_MESH[0]} x "
+        f"{SHARD_MESH[1]} mesh of one card, depth_periods={TRAIN_LAYERS}, moe_impl='a2a'); "
+        f"{n:,} float32 parameters, bfloat16 compute; placed state "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    it = make_batch_iterator(cell.cfg.vocab_size, S, B, state=DataState(seed=SEED), device=dev)
+    events, metrics = [], []
+    sh.reset_collectives()
+    t0 = time.perf_counter()
+    for step, batch in it:
+        if step >= SHARD_STEPS:
+            break
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        placed, m = cell.jitted(placed, batch)
+        ev[1].record()
+        events.append(ev)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sh.collective_counts()
+    ms = [a.elapsed_time(b) for a, b in events]
+    med = median(ms[1:])
+    for i, (m, t) in enumerate(zip(metrics, ms)):
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"16b step {i}: loss {loss}, grad norm {gn}")
+        log(f"  step {i:2d} loss {loss:.4f} grad norm {gn:.4f} ({t:.2f} ms)")
+    single = TIMED.get("15a")
+    beside = (f"; 15a's single-device step {single[0]:.2f} ms ({med / single[0]:.2f}x), its "
+              f"peak {single[1] / 2**30:.2f} GiB" if single else "")
+    log(f"  sharded train step: {med:.2f} ms (CUDA events, median of steps 2-{SHARD_STEPS}; "
+        f"first {ms[0]:.2f}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}); "
+        f"{B * S / med * 1e3:,.0f} tok/s; wall {wall:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{beside}; a step: "
+        f"{collective_line(counts, SHARD_STEPS)} ({smi})")
+    # the single controller's own copies, apart: the state gathered whole,
+    # then written back into its blocks (the same bytes each step moves)
+    parts = {"gather": [], "write back": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        whole = sh.gather(placed)
+        ev[1].record()
+        tree_map(sh.write_into, placed, whole)
+        ev[2].record()
+        torch.cuda.synchronize()
+        parts["gather"].append(ev[0].elapsed_time(ev[1]))
+        parts["write back"].append(ev[1].elapsed_time(ev[2]))
+        del whole
+    log("  of a step, measured apart (CUDA events, median of 3): " + ", ".join(
+        f"{k} {median(v):.2f} ms" for k, v in parts.items()) + f" of the state's "
+        f"{counts['all-gather']['bytes'] / SHARD_STEPS / 1e9:.3f} GB (read and written "
+        f"once each way: {2 * counts['all-gather']['bytes'] / SHARD_STEPS / HBM_BYTES_PER_S * 1e3:.2f} "
+        f"ms at 3.35 TB/s)")
+    del placed, metrics
+    free_card()
+
+    over = dict(moe_capacity_factor=8.0)
+    Bp, Sp = SHARD_PREFILL
+    with shape_cut("prefill_32k", Bp, Sp):
+        pcell = build_cell(LM_ARCH, "prefill_32k", mesh, depth_periods=TRAIN_LAYERS,
+                           moe_impl="auto", overrides=over)
+    single_cfg = dataclasses.replace(pcell.cfg, moe_impl="gather", moe_mesh=None)
+    params = tf.init_params(gen, single_cfg, torch.bfloat16)
+    toks = torch.randint(0, single_cfg.vocab_size, (Bp, Sp), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pparams = sh.place(params, pcell.jitted.in_specs[0], mesh)
+    sh.reset_collectives()
+    got, p_ms = host_ms(lambda: pcell.jitted(pparams, {"tokens": toks}).tensor())
+    pcounts = sh.collective_counts()
+    with torch.no_grad():
+        want = (tf.forward_hidden(params, single_cfg, toks)[:, -1]
+                @ params["lm_head"].to(torch.bfloat16))
+    perr = close_rel("16b prefill", got, want, SHARD_BF16_REL)
+    log(f"  prefill cell ({Bp} x {Sp}, moe_impl {pcell.cfg.moe_impl}, capacity factor 8) == "
+        f"the single-device forward's last-position logits: max err {perr:.2e} of max|want| "
+        f"(tol {SHARD_BF16_REL}); {p_ms:.0f} ms (host clock, synced); "
+        f"{collective_line(pcounts)}")
+    del pparams, got, want
+
+    Bd, L, steps = SHARD_DECODE
+    with shape_cut("decode_32k", Bd, L):
+        dcell = build_cell(LM_ARCH, "decode_32k", mesh, depth_periods=TRAIN_LAYERS,
+                           moe_impl="auto", overrides=over)
+    dcfg = dataclasses.replace(dcell.cfg, dispatch_spec=None)
+    if dataclasses.replace(single_cfg, dispatch_spec=None) != dcfg:
+        raise AssertionError("16b: the decode cell's config is not the prefill's")
+    dparams = sh.place(params, dcell.jitted.in_specs[0], mesh)
+    cache = tf.init_cache(dcfg, Bd, L, torch.bfloat16, device=dev)
+    pcache = sh.place(tf.init_cache(dcfg, Bd, L, torch.bfloat16, device=dev),
+                      dcell.jitted.in_specs[1], mesh)
+    dtoks = torch.randint(0, dcfg.vocab_size, (steps, Bd), generator=gen, device=dev,
+                          dtype=torch.int32)
+    sh.reset_collectives()
+    derr, d_ms = 0.0, []
+    for t in range(steps):
+        (pl, pcache), ms_t = host_ms(lambda: dcell.jitted(dparams, pcache, dtoks[t]))
+        d_ms.append(ms_t)
+        with torch.no_grad():
+            wl, cache = tf.decode_step(params, dcfg, cache, dtoks[t])
+        derr = max(derr, close_rel(f"16b decode step {t}", pl.tensor(), wl, SHARD_BF16_REL))
+    dcounts = sh.collective_counts()
+    log(f"  decode cell (batch {Bd}, max-len {L}, moe_impl {dcell.cfg.moe_impl} under "
+        f"dispatch_spec {dcell.cfg.dispatch_spec!r}) x {steps} steps == the single-device "
+        f"decode_step: max err {derr:.2e} of max|want|; median {median(d_ms):.1f} ms a step "
+        f"(host clock, synced); a step: {collective_line(dcounts, steps)}")
+
+
+def close_rel(label, got, want, rel) -> float:
+    """``got`` within ``rel`` of max|want|, both finite; returns the ratio."""
+    got, want = got.float(), want.float()
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"{label}: non-finite values")
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if err > rel:
+        raise AssertionError(f"{label}: off by {err:.3e} of max|want| > {rel}")
+    return err
+
+
+def phase_shard_dryrun():
+    """The dry run of deepseek-moe-16b train_4k on a 16 x 16 mesh of meta
+    positions, and its roofline row under the H100's constants."""
+    import tempfile
+
+    from repro_torch.launch import dryrun, roofline
+
+    with tempfile.TemporaryDirectory(prefix="flix-dryrun-") as tmp:
+        r, ms = host_ms(lambda: dryrun.run_cell(LM_ARCH, "train_4k", False, Path(tmp)))
+        rec = r["recon"]
+        for key in ("flops", "collective_bytes"):
+            if rec["formula"][key] != rec[key]:
+                raise AssertionError(f"16c: depth reconstruction of {key} "
+                                     f"{rec['formula'][key]} != direct {rec[key]}")
+        row = roofline.analyze_cell(Path(tmp) / f"{LM_ARCH}__train_4k__single.json")
+    mem = r["memory"]
+    log(f"phase 16c: python -m repro_torch.launch.dryrun --arch {LM_ARCH} --shape train_4k "
+        f"--mesh single: {r['devices']} meta positions, {rec['n_periods']} layers; FLOPs "
+        f"{r['cost']['flops_program']:.4e} in all, {r['cost']['flops']:.4e} a chip (the "
+        f"depth-1/2 reconstruction equal); collectives {collective_line(r['collectives'])}; "
+        f"a position holds {mem['argument_size_in_bytes'] / 2**30:.3f} GiB of arguments, "
+        f"{mem['output_size_in_bytes'] / 2**30:.3f} GiB of outputs; {ms / 1e3:.1f} s")
+    for line in roofline.render_table([row]).splitlines():
+        log(f"  | {line}")
+    log(f"  (roofline constants: {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{roofline.HBM_BW / 1e12:.2f} TB/s, link {roofline.LINK_BW / 1e9:.0f} GB/s)")
+
+
 def no_kernel_launched(label, run) -> None:
-    """Run one part of phase 15 between a reset and a read of the launch
-    counts: the training path runs no kernel of ours (the reference
-    trainer reaches no Pallas kernel)."""
+    """Run one part of phase 15 or 16 between a reset and a read of the
+    launch counts: the training and sharded paths run no kernel of ours
+    (the reference trainer and its sharding reach no Pallas kernel)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     reset_launches()
@@ -5098,6 +5419,9 @@ def main() -> int:
                                                            phase_train_timed(dev, smi)))),
         ("15b", lambda: no_kernel_launched("15b", lambda: phase_train_driver(dev))),
         ("15c", lambda: no_kernel_launched("15c", lambda: phase_train_example(dev))),
+        ("16a", lambda: no_kernel_launched("16a", lambda: phase_shard_lm_exact(dev))),
+        ("16b", lambda: no_kernel_launched("16b", lambda: phase_shard_lm_timed(dev, smi))),
+        ("16c", lambda: no_kernel_launched("16c", phase_shard_dryrun)),
     ]
     measured, serve_launches = {}, []
     for label, run in phases:

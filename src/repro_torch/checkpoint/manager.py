@@ -15,8 +15,12 @@ Fault-tolerance contract (DESIGN.md §6):
 
 The files are the reference's: ``arrays.npz`` with one array ``a{i}`` a
 leaf, in JAX's flatten order, and ``manifest.json`` with the leaves'
-``keystr`` names, ``extra`` and ``"specs": null`` (the port has no
-sharding, so it stores no PartitionSpecs and restores onto one device).  A
+``keystr`` names, ``extra`` and the leaves' logical PartitionSpecs as
+their ``repr`` (``"specs": null`` when the caller gives none).  Leaves are
+stored whole: a leaf placed on a mesh (``repro_torch.sharding.Placed``) is
+gathered to the host.  **Elastic restore**: given a mesh and specs,
+``restore_pytree`` places each leaf onto that mesh, so a checkpoint saved
+on a 4 × 2 mesh restores onto 2 × 4, 8 × 1 or one device unchanged.  A
 bfloat16 leaf is stored as the reference stores one, its 16-bit pattern as
 numpy's ``|V2``.  So a checkpoint written by either package restores in the
 other.  ``tmp_sibling`` also serves the durable FliX layer's snapshots.
@@ -35,8 +39,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.core.state import resolve_device
-from repro_torch.pytree import flatten_with_names, tree_unflatten
+from repro_torch.pytree import flatten_with_names, tree_leaves, tree_unflatten
 
 _TMP_COUNTER = itertools.count()
 _BF16_FILE = np.dtype("V2")  # what np.asarray of a JAX bfloat16 array saves as
@@ -65,6 +70,8 @@ def _host_array(leaf) -> np.ndarray:
     """A leaf as a numpy array that owns its memory: a CPU tensor is copied
     too (``.numpy()`` would share it), so that a step that writes the tensor
     in place after an async ``save`` cannot reach the pending save."""
+    if isinstance(leaf, sharding.Placed):  # gathered straight to the host
+        leaf = leaf.tensor("cpu")
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
@@ -80,13 +87,14 @@ def _leaf_tensor(a: np.ndarray, like, dev: torch.device) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    if isinstance(like, torch.Tensor) and tuple(like.shape) != tuple(t.shape):
+    if isinstance(like, (torch.Tensor, sharding.Placed)) and tuple(like.shape) != tuple(t.shape):
         raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)} for {tuple(like.shape)}")
     return t.to(dev)
 
 
-def save_pytree(path: Path, tree, *, extra: dict | None = None):
-    """Synchronous atomic save of a pytree of tensors or arrays."""
+def save_pytree(path: Path, tree, *, specs=None, extra: dict | None = None):
+    """Synchronous atomic save of a pytree of tensors or arrays (+ optional
+    PartitionSpecs, a tree of ``repro_torch.sharding.P`` parallel to it)."""
     path = Path(path)
     tmp = tmp_sibling(path)
     tmp.mkdir(parents=True)
@@ -95,6 +103,8 @@ def save_pytree(path: Path, tree, *, extra: dict | None = None):
         arrays = {f"a{i}": _host_array(leaf) for i, leaf in enumerate(leaves)}
         np.savez(tmp / "arrays.npz", **arrays)
         manifest = {"names": names, "extra": extra or {}, "specs": None}
+        if specs is not None:
+            manifest["specs"] = [repr(s) for s in tree_leaves(specs)]
         with open(tmp / "manifest.json", "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -107,9 +117,11 @@ def save_pytree(path: Path, tree, *, extra: dict | None = None):
         raise
 
 
-def restore_pytree(path: Path, like, *, device=None):
+def restore_pytree(path: Path, like, *, device=None, mesh=None, specs=None):
     """Restore into the structure of ``like``: tensors on the card unless
-    ``device`` names another.  Returns ``(tree, extra)``."""
+    ``device`` names another, or, given ``mesh`` and ``specs``, each leaf
+    read to the host and placed onto ``mesh`` by its spec (elastic restore
+    onto any mesh).  Returns ``(tree, extra)``."""
     path = Path(path)
     with open(path / "manifest.json") as f:
         manifest = json.load(f)
@@ -117,6 +129,14 @@ def restore_pytree(path: Path, like, *, device=None):
     if names != manifest["names"]:
         # the reference asserts; an AssertionError that -O cannot remove
         raise AssertionError("checkpoint/model structure mismatch")
+    if mesh is not None and specs is not None:
+        leaf_specs = tree_leaves(sharding.map_specs(lambda _, s: s, like, specs))
+        cpu = torch.device("cpu")
+        with np.load(path / "arrays.npz") as data:
+            restored = [sharding.place_tensor(_leaf_tensor(data[f"a{i}"], like_leaf, cpu),
+                                              s, mesh)
+                        for i, (like_leaf, s) in enumerate(zip(leaves, leaf_specs))]
+        return tree_unflatten(like, restored), manifest["extra"]
     dev = resolve_device(device)
     with np.load(path / "arrays.npz") as data:
         restored = [_leaf_tensor(data[f"a{i}"], like_leaf, dev)
@@ -135,7 +155,7 @@ class CheckpointManager:
         self._error: Exception | None = None
 
     # -- async API -----------------------------------------------------
-    def save(self, step: int, tree, *, extra: dict | None = None):
+    def save(self, step: int, tree, *, specs=None, extra: dict | None = None):
         """Copy ``tree`` to host memory and enqueue an async save; the
         newest request wins if the writer lags."""
         if self._error:
@@ -143,7 +163,7 @@ class CheckpointManager:
         _, leaves = _flatten_with_names(tree)
         host_tree = tree_unflatten(tree, [_host_array(leaf) for leaf in leaves])
         try:
-            self._q.put_nowait((step, host_tree, extra))
+            self._q.put_nowait((step, host_tree, specs, extra))
         except queue.Full:
             try:
                 self._q.get_nowait()  # drop the stale pending save
@@ -153,7 +173,7 @@ class CheckpointManager:
                 # the dropped item still counts toward join(); without this
                 # a wait() after any superseded save deadlocks
                 self._q.task_done()
-            self._q.put_nowait((step, host_tree, extra))
+            self._q.put_nowait((step, host_tree, specs, extra))
 
     def wait(self):
         self._q.join()
@@ -162,9 +182,10 @@ class CheckpointManager:
 
     def _run(self):
         while True:
-            step, tree, extra = self._q.get()
+            step, tree, specs, extra = self._q.get()
             try:
-                save_pytree(self.dir / f"step_{step:08d}", tree, extra=extra)
+                kw = {} if specs is None else {"specs": specs}
+                save_pytree(self.dir / f"step_{step:08d}", tree, extra=extra, **kw)
                 self._gc()
             except Exception as e:  # noqa: BLE001 — surface on next call
                 self._error = e
@@ -180,12 +201,13 @@ class CheckpointManager:
         )
         return steps[-1] if steps else None
 
-    def restore_latest(self, like, *, device=None):
+    def restore_latest(self, like, *, device=None, mesh=None, specs=None):
         """``(step, tree, extra)`` of the newest checkpoint, or three Nones."""
         step = self.latest_step()
         if step is None:
             return None, None, None
-        tree, extra = restore_pytree(self.dir / f"step_{step:08d}", like, device=device)
+        tree, extra = restore_pytree(self.dir / f"step_{step:08d}", like, device=device,
+                                     mesh=mesh, specs=specs)
         return step, tree, extra
 
     def _gc(self):

@@ -9,8 +9,10 @@ This is the model's own layer: capacity windows and einsums, as the
 reference computes them, not the grouped GEMM of ``kernels.moe_dispatch``.
 Routing is that module's ``_route`` (a stable descending sort: the lower
 expert first on tied gates, as ``jax.lax.top_k``).  The reference's
-``dispatch_spec`` is a sharding constraint for expert × token parallelism;
-on one device it is the identity, and the port takes only ``None``.
+``dispatch_spec`` is a sharding constraint for expert × token parallelism
+on the [E, C, ·] intermediates and the combine's output; the port computes
+them whole (``repro_torch.sharding``), so it checks the spec against the
+current mesh where the reference constrains, and is the identity there.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels.moe_dispatch import _route
 
 
@@ -28,13 +31,11 @@ def capacity(tokens: int, top_k: int, num_experts: int, factor: float) -> int:
     return max(8, math.ceil(c / 8) * 8)
 
 
-def _check_dispatch_spec(cfg) -> None:
-    if cfg.dispatch_spec is not None:
-        raise ValueError(
-            "dispatch_spec is a sharding constraint for expert x token "
-            "parallelism; the port runs on one device and takes None (the "
-            "sharding slice, sharding.py, is not ported)"
-        )
+def _constrain3(cfg):
+    """``with_sharding_constraint`` by ``cfg.dispatch_spec``, or nothing."""
+    if cfg.dispatch_spec is None:
+        return lambda a: a
+    return lambda a: sharding.constrain(a, cfg.dispatch_spec, "dispatch_spec")
 
 
 def _shared(x, p):
@@ -52,7 +53,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     ("virtual experts"); a token visits all chunks of its expert and the
     down-projection partial sums add in the combine.
     """
-    _check_dispatch_spec(cfg)
+    constrain3 = _constrain3(cfg)
     T, D = x.shape
     E, k, split = cfg.num_experts, cfg.top_k, cfg.moe_split
     logits = x.float() @ p["router"].float()
@@ -75,12 +76,12 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     valid = idx < group_offsets[1:, None]  # [E_v, C]
     slot = torch.clamp(idx, max=T * k_v - 1).long()
     token = sort_idx[slot] // k_v  # [E_v, C]
-    xe = x[token] * valid[..., None].to(x.dtype)  # [E_v, C, D]
+    xe = constrain3(x[token] * valid[..., None].to(x.dtype))  # [E_v, C, D]
 
-    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) * torch.einsum(
+    h = constrain3(F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", xe, p["w_up"]
-    )
-    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"])  # [E_v, C, D]
+    ))
+    ye = constrain3(torch.einsum("ecf,efd->ecd", h, p["w_down"]))  # [E_v, C, D]
 
     # combine: weighted scatter-add back to token order, row T the dump row
     w_slot = weights.reshape(-1)[sort_idx][slot] * valid  # [E_v, C]
@@ -88,6 +89,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     tok_flat = torch.where(valid, token, T).reshape(E_v * C)
     y = torch.zeros((T + 1, D), dtype=contrib.dtype, device=x.device)
     y = y.index_add_(0, tok_flat, contrib)[:T]
+    if cfg.dispatch_spec is not None:  # the token-sharded combine output
+        y = sharding.constrain(y, sharding.P(cfg.dispatch_spec[1], None), "dispatch_spec")
 
     if cfg.num_shared_experts:
         y = y + _shared(x, p)
@@ -96,7 +99,6 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
 
 def moe_ffn_dense_oracle(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     """Every expert computes every token; exact combine (tests only)."""
-    _check_dispatch_spec(cfg)
     E, k = cfg.num_experts, cfg.top_k
     logits = x.float() @ p["router"].float()
     weights, experts = _route(logits, k)

@@ -31,11 +31,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.core.state import resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, attention, rms_norm, rope_angles
+from repro_torch.models.moe_a2a import moe_ffn_a2a
+from repro_torch.sharding import P
 
 Params = dict[str, Any]
 _BIG = 1 << 30  # "infinite" attention window
@@ -215,12 +218,9 @@ def _ffn_block(x, lp, cfg: ModelConfig):
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.family == "moe":
         if cfg.moe_impl == "a2a" and cfg.moe_mesh is not None:
-            raise ValueError(
-                "moe_impl='a2a' with a moe_mesh is shard_map expert parallelism "
-                "(models/moe_a2a.py), which belongs to the sharding slice and is "
-                "not ported; use moe_impl='gather' or no moe_mesh"
-            )
-        y = moe_lib.moe_ffn(h.reshape(B * S, D), lp, cfg).reshape(B, S, D)
+            y = moe_ffn_a2a(h.reshape(B * S, D), lp, cfg, cfg.moe_mesh).reshape(B, S, D)
+        else:
+            y = moe_lib.moe_ffn(h.reshape(B * S, D), lp, cfg).reshape(B, S, D)
     else:
         y = (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
     return x + y
@@ -238,12 +238,10 @@ def _ssm_layer(x, lp, cfg):
 
 
 def check_act_spec(act_spec) -> None:
-    if act_spec is not None:
-        raise ValueError(
-            "act_spec is a sharding constraint on the residual stream; the "
-            "port runs on one device and takes None (the sharding slice, "
-            "sharding.py, is not ported)"
-        )
+    """``act_spec`` is None or a ``PartitionSpec``; the mesh it names is
+    checked where it constrains (``sharding.constrain``)."""
+    if act_spec is not None and not isinstance(act_spec, P):
+        raise TypeError(f"act_spec must be a PartitionSpec or None, got {act_spec!r}")
 
 
 def _unstack(layers: dict, n: int) -> list[dict]:
@@ -272,10 +270,18 @@ def forward_hidden(
     in the backward pass instead of saving its activations
     (``torch.utils.checkpoint``); the cast of the layer's weights to the
     compute dtype is inside the step, so those copies are recomputed too.
-    ``act_spec`` is a sharding constraint on the residual stream: the port
-    takes only ``None``.
+    ``act_spec``: the reference's Megatron-SP constraint on the residual
+    stream, after the embedding and after every layer (group) step.  The
+    port computes the stream whole (``repro_torch.sharding``), so the
+    constraint is a check against the current mesh and the identity.
     """
     check_act_spec(act_spec)
+    if act_spec is None:
+        def constrain(h):
+            return h
+    else:
+        def constrain(h):
+            return sharding.constrain(h, act_spec, "act_spec")
     compute = _compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(compute)
     prefix_len = 0
@@ -285,6 +291,7 @@ def forward_hidden(
     B, S, D = x.shape
     positions = torch.arange(S, device=x.device)
     glob = layer_is_global(cfg)
+    x = constrain(x)
 
     def run(fn, *args):
         if not remat:
@@ -295,7 +302,7 @@ def forward_hidden(
     layers = _unstack(params["layers"], cfg.num_layers)
     if cfg.family in ("ssm", "hybrid"):
         def ssm_step(h, lp):
-            return _ssm_layer(h, _cast(lp, compute), cfg)
+            return constrain(_ssm_layer(h, _cast(lp, compute), cfg))
 
         if cfg.family == "ssm":
             for lp in layers:
@@ -306,8 +313,8 @@ def forward_hidden(
             def group_step(h, group, shared):
                 for lp in group:
                     h = run(ssm_step, h, lp)
-                return _dense_layer(h, _cast(shared, compute), cfg, positions, True,
-                                    prefix_len, q_chunk)
+                return constrain(_dense_layer(h, _cast(shared, compute), cfg, positions, True,
+                                              prefix_len, q_chunk))
 
             n_groups = cfg.num_layers // g
             for i in range(n_groups):
@@ -316,8 +323,8 @@ def forward_hidden(
                 x = run(ssm_step, x, lp)
     else:
         def step(h, lp, is_global):
-            return _dense_layer(h, _cast(lp, compute), cfg, positions, is_global,
-                                prefix_len, q_chunk)
+            return constrain(_dense_layer(h, _cast(lp, compute), cfg, positions, is_global,
+                                          prefix_len, q_chunk))
 
         for i, lp in enumerate(layers):
             x = run(step, x, lp, bool(glob[i]))

@@ -120,6 +120,7 @@ def make_loss_fn(
             batch.get("prefix_embeds"),
             remat=remat,
             layer_loop=layer_loop,
+            act_spec=act_spec,
         )
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(compute)
         targets = batch["targets"]

@@ -10,9 +10,10 @@ package draws its own from the seed), and no printed line depends on them.
 The port alone: ``--gateway``, ``--wal-dir`` twice (the second run prints
 the recovery line), ``--device-budget``, ``--shards 2`` under both routings,
 ``--snapshot-window 2`` (``SNAPSHOT_GONE``), ``--index-impl reference``; the
-returned index's live pairs against a host model; and the ``ValueError``s
-of the options that belong to the sharding slice (``act_spec``,
-``dispatch_spec``, an a2a ``moe_mesh``).
+returned index's live pairs against a host model; and the sharding
+options the decoder takes (``act_spec``, ``dispatch_spec``, an a2a
+``moe_mesh``) with the reference's semantics: checks against the current
+mesh that leave the values as they are.
 """
 
 import dataclasses
@@ -24,10 +25,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_auto  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.serve.kv_index import PAGE_BITS  # noqa: E402
+from repro_torch.sharding import P  # noqa: E402
 
 BASE = ["--arch", "musicgen-medium", "--reduced", "--batch", "4", "--steps", "32",
         "--max-len", "64"]
@@ -140,16 +143,35 @@ def test_reference_engine_and_longer_run(capsys):
 
 
 def test_sharding_options_are_refused():
-    cfg = tmodel.get_config("deepseek-moe-16b").reduced(dtype="float32")
+    """Once refused, the sharding options now carry the reference's
+    semantics: ``act_spec`` and ``dispatch_spec`` are checked against the
+    current mesh, raise outside one (as ``with_sharding_constraint`` does)
+    and leave the values as they are; an a2a ``moe_mesh`` routes the MoE
+    layer through ``moe_ffn_a2a``."""
+    cfg = tmodel.get_config("deepseek-moe-16b").reduced(dtype="float32",
+                                                        moe_capacity_factor=8.0)
     params = tmodel.init_params(0, cfg, device="cpu")
-    tokens = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="act_spec"):
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4), dtype=torch.int32)
+    plain = ttf.forward_hidden(params, cfg, tokens)
+    mesh = make_mesh_auto((4, 2), ("data", "model"), ["cpu"] * 8)
+    act = P("data", "model", None)
+    with pytest.raises(RuntimeError, match="act_spec .* needs a mesh"):
+        ttf.forward_hidden(params, cfg, tokens, act_spec=act)
+    with pytest.raises(TypeError, match="act_spec must be a PartitionSpec"):
         ttf.forward_hidden(params, cfg, tokens, act_spec=("data", None, "model"))
-    with pytest.raises(ValueError, match="dispatch_spec"):
-        tmoe.moe_ffn(torch.zeros(4, cfg.d_model), {},
-                     dataclasses.replace(cfg, dispatch_spec=("model", "data", None)))
-    with pytest.raises(ValueError, match="moe_a2a"):
-        ttf.forward(params, dataclasses.replace(cfg, moe_impl="a2a", moe_mesh=object()), tokens)
+    with mesh:
+        assert torch.equal(ttf.forward_hidden(params, cfg, tokens, act_spec=act), plain)
+        with pytest.raises(ValueError, match="not found in mesh"):
+            ttf.forward_hidden(params, cfg, tokens, act_spec=P("pod", None, None))
+    x = torch.randn(16, cfg.d_model)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    dcfg = dataclasses.replace(cfg, dispatch_spec=P("model", "data", None))
+    with pytest.raises(RuntimeError, match="dispatch_spec .* needs a mesh"):
+        tmoe.moe_ffn(x, lp, dcfg)
+    with mesh:
+        assert torch.equal(tmoe.moe_ffn(x, lp, dcfg), tmoe.moe_ffn(x, lp, cfg))
+    a2a = ttf.forward(params, dataclasses.replace(cfg, moe_impl="a2a", moe_mesh=mesh), tokens)
+    torch.testing.assert_close(a2a, ttf.forward(params, cfg, tokens), rtol=1e-5, atol=1e-5)
     # a2a without a mesh is the gather path, as in the reference
     out = ttf.forward(params, dataclasses.replace(cfg, moe_impl="a2a"), tokens)
     assert torch.equal(out, ttf.forward(params, cfg, tokens))

@@ -4,11 +4,14 @@ port-side counterpart of ``tests/test_system.py::
 test_train_driver_resume_cli``, whose reference driver fails under JAX 0.9,
 see ROADMAP Queue 3); a crash injected after the step-10 checkpoint and a
 rerun with the same arguments end exactly where an uninterrupted run ends;
-``--mesh`` other than 1x1 is refused; without ``--device`` it needs a card.
+``--mesh 2x1`` trains at 1 x 1 on the host, as the reference's rule
+makes a mesh larger than the devices ``(n, 1)``, and its checkpoint, with
+the state's PartitionSpecs, resumes; without ``--device`` it needs a card.
 """
 
 import contextlib
 import io
+import json
 import re
 
 import pytest
@@ -80,9 +83,22 @@ def test_crash_after_checkpoint_then_rerun_ends_exactly(tmp_path, monkeypatch):
         assert torch.equal(g, w)
 
 
-def test_mesh_other_than_1x1_is_refused():
-    with pytest.raises(ValueError, match="sharding.py"):
-        train.main(BASE + ["--steps", "1", "--mesh", "2x1"])
+def test_mesh_other_than_1x1_is_refused(tmp_path):
+    """Once refused, ``--mesh 2x1`` now runs: on the host's one device it
+    collapses to 1 x 1 (``make_host_mesh``), trains exactly as the default
+    mesh does, writes the state's specs into its checkpoints and resumes."""
+    argv = BASE + ["--mesh", "2x1", "--ckpt-dir", str(tmp_path)]
+    got, lines = run(argv + ["--steps", "12"])
+    want, want_lines = run(BASE + ["--steps", "12"])
+    assert [line.split("(")[0] for line in lines] == [
+        line.split("(")[0] for line in want_lines]
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
+    manifest = json.loads((tmp_path / "step_00000012" / "manifest.json").read_text())
+    assert manifest["specs"][:2] == ["PartitionSpec('model', None)", "PartitionSpec(None,)"]
+    state, lines = run(argv + ["--steps", "16"])
+    assert lines[0] == "resumed from step 12" and lines[-1] == "done"
+    assert int(state.opt.step) == 15
 
 
 def test_default_device_is_the_card():

@@ -30,9 +30,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.train import step as jstep  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_auto  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.pytree import flatten_with_names, tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.sharding import P  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 from test_torch_train import (  # noqa: E402
     FAMILIES,
@@ -140,7 +142,8 @@ def test_ssd_full_chunk_gradient_is_non_finite_in_both():
 
 def test_step_writes_in_place_and_serves():
     """The step returns the state's own tensors, updated; the trained
-    parameters serve through ``DecoderLM``; ``act_spec`` is refused."""
+    parameters serve through ``DecoderLM``; ``act_spec`` is a
+    ``PartitionSpec`` that constrains inside a mesh and changes nothing."""
     _, tcfg, _, ts, batch = setup("deepseek-moe-16b", seed=3)
     ids = [id(p) for p in tree_leaves(ts.params)]
     first = tree_leaves(ts.params)[0].clone()
@@ -151,5 +154,13 @@ def test_step_writes_in_place_and_serves():
     lm = tmodel.DecoderLM(tcfg, ts2.params)
     toks = tbatch(batch)["tokens"]
     assert torch.equal(lm(toks), ttf.forward(ts2.params, tcfg, toks))
-    with pytest.raises(ValueError, match="act_spec"):
+    with pytest.raises(TypeError, match="act_spec"):
         tstep.make_train_step(tcfg, act_spec=("data", None))
+    act = P("data", None, None)
+    with pytest.raises(RuntimeError, match="needs a mesh"):  # as with_sharding_constraint
+        tstep.make_loss_fn(tcfg, act_spec=act, loss_chunk=LOSS_CHUNK)(ts2.params, tbatch(batch))
+    with make_mesh_auto((2, 1), ("data", "model"), ["cpu"] * 2):
+        loss = tstep.make_loss_fn(tcfg, act_spec=act, loss_chunk=LOSS_CHUNK)(ts2.params,
+                                                                             tbatch(batch))
+    assert torch.equal(loss, tstep.make_loss_fn(tcfg, loss_chunk=LOSS_CHUNK)(ts2.params,
+                                                                              tbatch(batch)))
