@@ -3574,12 +3574,14 @@ def phase_shard_small(dev):
     log(f"  3j: {n_calls} sharded calls, each equal to apply_ops on the union geometry")
 
 
-def span_split(spans) -> dict:
-    """Milliseconds of each span label over one call's marks (CUDA events on
-    one card: each mark closes the span since the one before it)."""
+def span_split(events) -> dict:
+    """Milliseconds of each ``shard.*`` span over one call's
+    ``repro_torch.trace.EVENTS`` triples (CUDA events on one card; the four
+    spans follow one another and nest in none of their own kind)."""
     out = {"route": 0.0, "range": 0.0, "apply": 0.0, "combine": 0.0}
-    for (_, a), (label, b) in zip(spans, spans[1:]):
-        out[label] += a.elapsed_time(b)
+    for name, a, b in events:
+        if name.startswith("shard."):
+            out[name.removeprefix("shard.")] += a.elapsed_time(b)
     return out
 
 
@@ -3598,7 +3600,7 @@ def phase_shard(dev, smi):
     sorted batch cut into chunks sends a chunk's rows to one or two shards,
     past the 2^17 rows a pair, so ``shard_apply_ops_safe`` replays it at the
     chunk size (its ``a2a_retries``, printed)."""
-    from repro_torch import core
+    from repro_torch import core, trace
     from repro_torch.core import distributed as dist
     from repro_torch.kernels import LAUNCHES, reset_launches
 
@@ -3629,16 +3631,17 @@ def phase_shard(dev, smi):
             t0 = time.perf_counter()
             ops, perm = core.make_ops(tags, bkeys, bvals, device=dev)
             start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             start.record()
-            dist.SPANS = [(None, start)]
+            trace.EVENTS = events = []
             try:
                 new_idx, res, stats = dist.shard_apply_ops_safe(
                     idx, ops, mesh, config=cfg, has_updates=True, has_ranges=True)
+                end.record()
                 value = core.unsort(res["value"], perm)
                 torch.cuda.synchronize()
-                spans = dist.SPANS
             finally:
-                dist.SPANS = None
+                trace.EVENTS = None
             e2e.append((time.perf_counter() - t0) * 1e3)
             counts = {k: LAUNCHES[k] for k in LAUNCHES}
             # a capacity replay runs every shard's pass again
@@ -3648,8 +3651,9 @@ def phase_shard(dev, smi):
                 launches[k] += counts[k]
             if stats["restructure_retries"] or int(stats["a2a_overflow"]):
                 raise AssertionError(f"12a {routing} batch {i}: regrew or dropped ({stats})")
-            split = span_split(spans)
-            del spans
+            split = span_split(events)
+            call_ms = start.elapsed_time(end)
+            del events
 
             def single_batch():
                 sops, sperm = core.make_ops(tags, bkeys, bvals, device=dev)
@@ -3664,7 +3668,8 @@ def phase_shard(dev, smi):
             log(f"  {routing} batch {i}: {e2e[-1]:.3f} ms ({FULL_OPS / e2e[-1] / 1e3:.3f} "
                 f"MOps/s; single-device {ms:.3f} ms); by CUDA events: route "
                 f"{split['route']:.3f}, RANGE counts {split['range']:.3f}, apply_ops over the "
-                f"shards {split['apply']:.3f}, combine {split['combine']:.3f} ms; launches "
+                f"shards {split['apply']:.3f}, combine {split['combine']:.3f} ms, together "
+                f"{sum(split.values()):.3f} of the call's {call_ms:.3f} ms; launches "
                 f"{ {k: counts[k] for k in SHARD_KERNELS} }; a2a_retries "
                 f"{stats['a2a_retries']} (rows dropped {stats['a2a_overflow_dropped']}); "
                 f"inserted {int(stats['inserted'])} deleted {int(stats['deleted'])} "

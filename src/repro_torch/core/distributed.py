@@ -55,6 +55,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.batch import bucket_slices, gather_sublists
 from repro_torch.core.build import build_from_sorted
 from repro_torch.core.config import ExecConfig
@@ -95,22 +96,6 @@ _INNER_MR = 8
 
 # the state planes laid out per bucket, which a shard holds a slice of
 _BUCKET_FIELDS = ("keys", "vals", "node_count", "node_max", "num_nodes", "mkba", "exps")
-
-# span marks of the executors, for a CUDA-event split of one call on one
-# card: a caller sets a list here holding its start event, and each mark
-# appends ``(label, event)``, closing the span since the mark before it —
-# "route" (masks, sorts, send buffers, all_to_all), "range" (the RANGE
-# counts phase and extraction), "apply" (a shard's apply_ops), "combine"
-# (the collectives' recombination).  None: no marks, no cost.
-SPANS: list | None = None
-
-
-def _mark(label: str) -> None:
-    if SPANS is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        SPANS.append((label, ev))
-
 
 class ShardMesh:
     """An explicit tuple of torch devices, one per shard, along one named
@@ -557,107 +542,111 @@ def _replicated(idx, mesh, ops, exp, now, inner_cfg, max_results, has_ranges, ha
     tag, key, val = ops.tag, ops.key, ops.val
     n = key.shape[0]
     predicted = has_ranges and now is None
-    placed = replicate_batch(OpBatch(tag, key, val, exp), mesh)
+    with trace.span("shard.route"):
+        placed = replicate_batch(OpBatch(tag, key, val, exp), mesh)
 
     new_states, cands, values, locals_, contrib = [], [], [], [], []
     for s, (state, b) in enumerate(zip(idx.states, placed)):
         d = state.device
-        lf = _on(idx.lower_fence, d)[s]
-        is_upd = _update_mask(b.tag)
-        is_rng = b.tag == OP_RANGE
-        # updates run on their owner shard only; POINT and SUCCESSOR run
-        # everywhere; RANGE is lifted out for the cross-shard phase
-        keep = (~is_upd | ((b.key > lf) & (b.key <= state.mkba[-1]))) & ~is_rng
-        mtag = torch.where(keep, b.tag, OP_NOP)
-        mkey = torch.where(keep, b.key, EMPTY)
-        mval = torch.where(keep, b.val, 0)
-        order = torch.argsort(mkey, stable=True)
-        inv = _inverse_permutation(order)
-        stag, skey = mtag[order], mkey[order]
-        sexp = None if b.exp is None else torch.where(keep, b.exp, NO_EXPIRY)[order]
-        _mark("route")
+        with trace.span("shard.route"):
+            lf = _on(idx.lower_fence, d)[s]
+            is_upd = _update_mask(b.tag)
+            is_rng = b.tag == OP_RANGE
+            # updates run on their owner shard only; POINT and SUCCESSOR run
+            # everywhere; RANGE is lifted out for the cross-shard phase
+            keep = (~is_upd | ((b.key > lf) & (b.key <= state.mkba[-1]))) & ~is_rng
+            mtag = torch.where(keep, b.tag, OP_NOP)
+            mkey = torch.where(keep, b.key, EMPTY)
+            mval = torch.where(keep, b.val, 0)
+            order = torch.argsort(mkey, stable=True)
+            inv = _inverse_permutation(order)
+            stag, skey = mtag[order], mkey[order]
+            sexp = None if b.exp is None else torch.where(keep, b.exp, NO_EXPIRY)[order]
         if predicted:
-            ins_keys = _compact_by_mask(skey, (stag == OP_INSERT) | (stag == OP_EXPIRE))
-            del_keys = _compact_by_mask(skey, stag == OP_DELETE)
-            locals_.append(_local_counts(state, ins_keys, del_keys, is_rng, b.key, b.val, True))
-            del ins_keys, del_keys
-            _mark("range")
-        new, res, st = _apply_shard(state, stag, skey, mval[order], sexp, inner_cfg, now)
-        _mark("apply")
+            with trace.span("shard.range"):
+                ins_keys = _compact_by_mask(skey, (stag == OP_INSERT) | (stag == OP_EXPIRE))
+                del_keys = _compact_by_mask(skey, stag == OP_DELETE)
+                locals_.append(
+                    _local_counts(state, ins_keys, del_keys, is_rng, b.key, b.val, True)
+                )
+                del ins_keys, del_keys
+        with trace.span("shard.apply"):
+            new, res, st = _apply_shard(state, stag, skey, mval[order], sexp, inner_cfg, now)
         if has_ranges and not predicted:
-            locals_.append(_local_counts(new, None, None, is_rng, b.key, b.val, False))
-            _mark("range")
-        value, succ = res["value"][inv], res["succ_key"][inv]
-        cands.append(torch.where(b.tag == OP_SUCCESSOR, succ, EMPTY))
-        values.append(value)
-        new_states.append(new)
-        c = {
-            "inserted": st["inserted"],
-            "deleted": st["deleted"],
-            "overflowed_buckets": st["overflowed_buckets"],
-            "restructure": new.needs_restructure.to(torch.int32),
-        }
-        if has_ttl:
-            c["expired"] = st["expired"]
-        contrib.append(c)
+            with trace.span("shard.range"):
+                locals_.append(_local_counts(new, None, None, is_rng, b.key, b.val, False))
+        with trace.span("shard.combine"):
+            value, succ = res["value"][inv], res["succ_key"][inv]
+            cands.append(torch.where(b.tag == OP_SUCCESSOR, succ, EMPTY))
+            values.append(value)
+            new_states.append(new)
+            c = {
+                "inserted": st["inserted"],
+                "deleted": st["deleted"],
+                "overflowed_buckets": st["overflowed_buckets"],
+                "restructure": new.needs_restructure.to(torch.int32),
+            }
+            if has_ttl:
+                c["expired"] = st["expired"]
+            contrib.append(c)
 
     # SUCCESSOR: shard-local candidates, global minimum; shard key ranges
     # are disjoint, so exactly one shard attains it
-    kmin = pmin(cands, out)
-    is_point = (tag == OP_POINT) | (tag == OP_EXPIRE)
-    is_succ = tag == OP_SUCCESSOR
-    for s, (c, value, cand) in enumerate(zip(contrib, values, cands)):
-        d = value.device
-        hit = _on(is_point, d) & (value != NOT_FOUND)
-        winner = (cand == _on(kmin, d)) & (cand != EMPTY)
-        c["pv"] = torch.where(hit, value, 0)
-        c["n_hit"] = hit.to(torch.int32)
-        c["sv"] = torch.where(winner, value, 0)
-    _mark("combine")
+    with trace.span("shard.combine"):
+        kmin = pmin(cands, out)
+        is_point = (tag == OP_POINT) | (tag == OP_EXPIRE)
+        is_succ = tag == OP_SUCCESSOR
+        for s, (c, value, cand) in enumerate(zip(contrib, values, cands)):
+            d = value.device
+            hit = _on(is_point, d) & (value != NOT_FOUND)
+            winner = (cand == _on(kmin, d)) & (cand != EMPTY)
+            c["pv"] = torch.where(hit, value, 0)
+            c["n_hit"] = hit.to(torch.int32)
+            c["sv"] = torch.where(winner, value, 0)
 
     if has_ranges:
-        is_rng = tag == OP_RANGE
-        counts_all = all_gather([f for _, f in locals_], mesh)
-        win = _range_windows(_on(counts_all[0], out), is_rng, max_results)
-        for s, (new, (rank_lo, full)) in enumerate(zip(new_states, locals_)):
-            d = new.device
-            wd = {k: _on(v, d) for k, v in win.items()}
-            c = contrib[s]
-            c["rk"], c["rv"] = _range_contrib(new, wd, s, rank_lo, full)
-        del locals_
-        _mark("range")
+        with trace.span("shard.range"):
+            is_rng = tag == OP_RANGE
+            counts_all = all_gather([f for _, f in locals_], mesh)
+            win = _range_windows(_on(counts_all[0], out), is_rng, max_results)
+            for s, (new, (rank_lo, full)) in enumerate(zip(new_states, locals_)):
+                d = new.device
+                wd = {k: _on(v, d) for k, v in win.items()}
+                c = contrib[s]
+                c["rk"], c["rv"] = _range_contrib(new, wd, s, rank_lo, full)
+            del locals_
 
-    summed = {k: psum([c[k] for c in contrib], out) for k in contrib[0]}
-    point_val = torch.where(summed["n_hit"] > 0, summed["pv"], NOT_FOUND)
-    succ_val = torch.where(kmin != EMPTY, summed["sv"], NOT_FOUND)
-    if has_ranges:
-        rk = torch.where(win["valid"], summed["rk"], EMPTY)
-        rv = torch.where(win["valid"], summed["rv"], NOT_FOUND)
-        rstart = torch.where(is_rng, win["start"], 0)
-        rcnt = torch.where(is_rng, win["emit"], 0)
-        rtrunc = win["truncated"]
-    else:
-        rk, rv, rstart, rcnt, rtrunc = _empty_range_outputs(n, max_results, out)
-    results = {
-        "value": torch.where(is_point, point_val, torch.where(is_succ, succ_val, NOT_FOUND)),
-        "succ_key": torch.where(is_succ, kmin, EMPTY),
-        "range_key": rk,
-        "range_val": rv,
-        "range_start": rstart,
-        "range_count": rcnt,
-    }
-    stats = {
-        "inserted": summed["inserted"],
-        "deleted": summed["deleted"],
-        "overflowed_buckets": summed["overflowed_buckets"],
-        "range_truncated": rtrunc,
-        "a2a_overflow": torch.zeros((), dtype=torch.int32, device=out),
-    }
-    if has_ttl:
-        stats["expired"] = summed["expired"]
-    states = _set_restructure(new_states, summed["restructure"] > 0)
-    _mark("combine")
-    return states, results, stats
+    with trace.span("shard.combine"):
+        summed = {k: psum([c[k] for c in contrib], out) for k in contrib[0]}
+        point_val = torch.where(summed["n_hit"] > 0, summed["pv"], NOT_FOUND)
+        succ_val = torch.where(kmin != EMPTY, summed["sv"], NOT_FOUND)
+        if has_ranges:
+            rk = torch.where(win["valid"], summed["rk"], EMPTY)
+            rv = torch.where(win["valid"], summed["rv"], NOT_FOUND)
+            rstart = torch.where(is_rng, win["start"], 0)
+            rcnt = torch.where(is_rng, win["emit"], 0)
+            rtrunc = win["truncated"]
+        else:
+            rk, rv, rstart, rcnt, rtrunc = _empty_range_outputs(n, max_results, out)
+        results = {
+            "value": torch.where(is_point, point_val, torch.where(is_succ, succ_val, NOT_FOUND)),
+            "succ_key": torch.where(is_succ, kmin, EMPTY),
+            "range_key": rk,
+            "range_val": rv,
+            "range_start": rstart,
+            "range_count": rcnt,
+        }
+        stats = {
+            "inserted": summed["inserted"],
+            "deleted": summed["deleted"],
+            "overflowed_buckets": summed["overflowed_buckets"],
+            "range_truncated": rtrunc,
+            "a2a_overflow": torch.zeros((), dtype=torch.int32, device=out),
+        }
+        if has_ttl:
+            stats["expired"] = summed["expired"]
+        states = _set_restructure(new_states, summed["restructure"] > 0)
+        return states, results, stats
 
 
 def _a2a(idx, mesh, ops, exp, now, inner_cfg, max_results, has_ranges, has_ttl, capacity):
@@ -666,175 +655,176 @@ def _a2a(idx, mesh, ops, exp, now, inner_cfg, max_results, has_ranges, has_ttl, 
     out = ops.key.device
     n_local = ops.size // S
     predicted = has_ranges and now is None
-    chunks = shard_batch(OpBatch(ops.tag, ops.key, ops.val, exp), mesh)
+    with trace.span("shard.route"):
+        chunks = shard_batch(OpBatch(ops.tag, ops.key, ops.val, exp), mesh)
 
-    if has_ranges:
-        # every shard's RANGE rows, gathered up front (the global batch),
-        # sorted by lo: the cross-shard phase answers them
-        g_tag = ops.tag
-        g_isr = g_tag == OP_RANGE
-        gorder = torch.argsort(torch.where(g_isr, ops.key, EMPTY), stable=True)
-        isr_s, q_lo, q_hi = g_isr[gorder], ops.key[gorder], ops.val[gorder]
+        if has_ranges:
+            # every shard's RANGE rows, gathered up front (the global batch),
+            # sorted by lo: the cross-shard phase answers them
+            g_tag = ops.tag
+            g_isr = g_tag == OP_RANGE
+            gorder = torch.argsort(torch.where(g_isr, ops.key, EMPTY), stable=True)
+            isr_s, q_lo, q_hi = g_isr[gorder], ops.key[gorder], ops.val[gorder]
 
-    # routing: one partition-fence searchsorted per source shard, padded
-    # send buffers of ``capacity`` rows per destination, overflow counted
-    routes, sends, overflows = [], [], []
-    lane = None
-    for s, b in enumerate(chunks):
-        d = b.key.device
-        # RANGE rows never ride the a2a; masking them to the EMPTY tail
-        # keeps the local sort a valid routing order
-        rkey = torch.where(b.tag == OP_RANGE, EMPTY, b.key)
-        order = torch.argsort(rkey, stable=True)
-        inv = _inverse_permutation(order)
-        s_tag, s_key, s_val = b.tag[order], rkey[order], b.val[order]
-        pf = _on(idx.part_fences, d)
-        ends = torch.searchsorted(s_key, pf, right=True, out_int32=True)
-        starts = torch.cat([ends.new_zeros((1,)), ends[:-1]])
-        overflows.append(torch.clamp(ends - starts - capacity, min=0).sum(dtype=torch.int32))
-        if lane is None or lane.device != d:
-            lane = torch.arange(capacity, dtype=torch.int32, device=d)
-        idx_ = starts[:, None] + lane[None, :]
-        valid = idx_ < ends[:, None]
-        idx_c = torch.clamp(idx_, max=n_local - 1)
-        send = [
-            torch.where(valid, s_tag[idx_c], OP_NOP),
-            torch.where(valid, s_key[idx_c], EMPTY),
-            torch.where(valid, s_val[idx_c], 0),
-        ]
-        if b.exp is not None:
-            # the deadline rides as a fourth lane; EXPIRE rows route to
-            # their owner by key like every other update
-            send.append(torch.where(valid, b.exp[order][idx_c], NO_EXPIRY))
-        sends.append(send)
-        routes.append((inv, torch.where(valid, idx_c, n_local).reshape(-1)))
-        del s_tag, s_key, s_val, idx_, idx_c, valid, order
-    lanes = [all_to_all([snd[k] for snd in sends], mesh) for k in range(len(sends[0]))]
-    del sends
-    _mark("route")
+        # routing: one partition-fence searchsorted per source shard, padded
+        # send buffers of ``capacity`` rows per destination, overflow counted
+        routes, sends, overflows = [], [], []
+        lane = None
+        for s, b in enumerate(chunks):
+            d = b.key.device
+            # RANGE rows never ride the a2a; masking them to the EMPTY tail
+            # keeps the local sort a valid routing order
+            rkey = torch.where(b.tag == OP_RANGE, EMPTY, b.key)
+            order = torch.argsort(rkey, stable=True)
+            inv = _inverse_permutation(order)
+            s_tag, s_key, s_val = b.tag[order], rkey[order], b.val[order]
+            pf = _on(idx.part_fences, d)
+            ends = torch.searchsorted(s_key, pf, right=True, out_int32=True)
+            starts = torch.cat([ends.new_zeros((1,)), ends[:-1]])
+            overflows.append(torch.clamp(ends - starts - capacity, min=0).sum(dtype=torch.int32))
+            if lane is None or lane.device != d:
+                lane = torch.arange(capacity, dtype=torch.int32, device=d)
+            idx_ = starts[:, None] + lane[None, :]
+            valid = idx_ < ends[:, None]
+            idx_c = torch.clamp(idx_, max=n_local - 1)
+            send = [
+                torch.where(valid, s_tag[idx_c], OP_NOP),
+                torch.where(valid, s_key[idx_c], EMPTY),
+                torch.where(valid, s_val[idx_c], 0),
+            ]
+            if b.exp is not None:
+                # the deadline rides as a fourth lane; EXPIRE rows route to
+                # their owner by key like every other update
+                send.append(torch.where(valid, b.exp[order][idx_c], NO_EXPIRY))
+            sends.append(send)
+            routes.append((inv, torch.where(valid, idx_c, n_local).reshape(-1)))
+            del s_tag, s_key, s_val, idx_, idx_c, valid, order
+        lanes = [all_to_all([snd[k] for snd in sends], mesh) for k in range(len(sends[0]))]
+        del sends
 
     new_states, shard_out, locals_, contrib, mins, mvals = [], [], [], [], [], []
     for dst, state in enumerate(idx.states):
-        recv = [lane_[dst].reshape(-1) for lane_ in lanes]
-        recv_t, recv_k, recv_v = recv[:3]
-        recv_e = recv[3] if len(recv) > 3 else None
-        rord = torch.argsort(recv_k, stable=True)
-        rinv = _inverse_permutation(rord)
-        r_tag, r_key = recv_t[rord], recv_k[rord]
-        if has_ranges:
-            d = state.device
-            rng = (_on(isr_s, d), _on(q_lo, d), _on(q_hi, d))
-        _mark("route")
+        with trace.span("shard.route"):
+            recv = [lane_[dst].reshape(-1) for lane_ in lanes]
+            recv_t, recv_k, recv_v = recv[:3]
+            recv_e = recv[3] if len(recv) > 3 else None
+            rord = torch.argsort(recv_k, stable=True)
+            rinv = _inverse_permutation(rord)
+            r_tag, r_key = recv_t[rord], recv_k[rord]
+            if has_ranges:
+                d = state.device
+                rng = (_on(isr_s, d), _on(q_lo, d), _on(q_hi, d))
         if predicted:
-            # the received rows ARE this shard's update batch, so the
-            # prediction sees exactly what the apply will do
-            ins_keys = _compact_by_mask(r_key, (r_tag == OP_INSERT) | (r_tag == OP_EXPIRE))
-            del_keys = _compact_by_mask(r_key, r_tag == OP_DELETE)
-            locals_.append(_local_counts(state, ins_keys, del_keys, *rng, True))
-            del ins_keys, del_keys
-            _mark("range")
-        new, res, st = _apply_shard(
-            state, r_tag, r_key, recv_v[rord], None if recv_e is None else recv_e[rord],
-            inner_cfg, now,
-        )
-        _mark("apply")
+            with trace.span("shard.range"):
+                # the received rows ARE this shard's update batch, so the
+                # prediction sees exactly what the apply will do
+                ins_keys = _compact_by_mask(r_key, (r_tag == OP_INSERT) | (r_tag == OP_EXPIRE))
+                del_keys = _compact_by_mask(r_key, r_tag == OP_DELETE)
+                locals_.append(_local_counts(state, ins_keys, del_keys, *rng, True))
+                del ins_keys, del_keys
+        with trace.span("shard.apply"):
+            new, res, st = _apply_shard(
+                state, r_tag, r_key, recv_v[rord], None if recv_e is None else recv_e[rord],
+                inner_cfg, now,
+            )
         if has_ranges and not predicted:
-            locals_.append(_local_counts(new, None, None, *rng, False))
-            _mark("range")
-        m, mv = _post_update_shard_min(new)
-        mins.append(m.reshape(1))
-        mvals.append(mv.reshape(1))
-        shard_out.append((recv_t, res["value"][rinv], res["succ_key"][rinv]))
-        new_states.append(new)
-        c = {
-            "inserted": st["inserted"],
-            "deleted": st["deleted"],
-            "overflowed_buckets": st["overflowed_buckets"],
-            "a2a_overflow": overflows[dst],
-            "restructure": new.needs_restructure.to(torch.int32),
-        }
-        if has_ttl:
-            c["expired"] = st["expired"]
-        contrib.append(c)
+            with trace.span("shard.range"):
+                locals_.append(_local_counts(new, None, None, *rng, False))
+        with trace.span("shard.combine"):
+            m, mv = _post_update_shard_min(new)
+            mins.append(m.reshape(1))
+            mvals.append(mv.reshape(1))
+            shard_out.append((recv_t, res["value"][rinv], res["succ_key"][rinv]))
+            new_states.append(new)
+            c = {
+                "inserted": st["inserted"],
+                "deleted": st["deleted"],
+                "overflowed_buckets": st["overflowed_buckets"],
+                "a2a_overflow": overflows[dst],
+                "restructure": new.needs_restructure.to(torch.int32),
+            }
+            if has_ttl:
+                c["expired"] = st["expired"]
+            contrib.append(c)
         del recv, rord, rinv, r_tag, r_key
     del lanes
 
-    # SUCCESSOR fallback across shards: an owner whose updated state holds
-    # no key ≥ q answers with the first non-empty *later* shard's minimum —
-    # the fence-row trick one level up
-    all_mins = all_gather(mins, mesh)
-    all_mvals = all_gather(mvals, mesh)
-    backs_v, backs_k = [], []
-    for me, (recv_t, value_r, skey_r) in enumerate(shard_out):
-        sufk, sufi = _suffix_min_with_index(all_mins[me].reshape(-1))
-        fb_key = sufk[me + 1] if me + 1 < S else torch.full_like(sufk[0], EMPTY)
-        fb_idx = sufi[me + 1] if me + 1 < S else torch.zeros_like(sufi[0])
-        fb_val = torch.where(fb_key != EMPTY, all_mvals[me].reshape(-1)[fb_idx], NOT_FOUND)
-        needs_fb = (recv_t == OP_SUCCESSOR) & (skey_r == EMPTY)
-        backs_k.append(torch.where(needs_fb, fb_key, skey_r).reshape(S, capacity))
-        backs_v.append(torch.where(needs_fb, fb_val, value_r).reshape(S, capacity))
-    del shard_out
+    with trace.span("shard.combine"):
+        # SUCCESSOR fallback across shards: an owner whose updated state holds
+        # no key ≥ q answers with the first non-empty *later* shard's minimum —
+        # the fence-row trick one level up
+        all_mins = all_gather(mins, mesh)
+        all_mvals = all_gather(mvals, mesh)
+        backs_v, backs_k = [], []
+        for me, (recv_t, value_r, skey_r) in enumerate(shard_out):
+            sufk, sufi = _suffix_min_with_index(all_mins[me].reshape(-1))
+            fb_key = sufk[me + 1] if me + 1 < S else torch.full_like(sufk[0], EMPTY)
+            fb_idx = sufi[me + 1] if me + 1 < S else torch.zeros_like(sufi[0])
+            fb_val = torch.where(fb_key != EMPTY, all_mvals[me].reshape(-1)[fb_idx], NOT_FOUND)
+            needs_fb = (recv_t == OP_SUCCESSOR) & (skey_r == EMPTY)
+            backs_k.append(torch.where(needs_fb, fb_key, skey_r).reshape(S, capacity))
+            backs_v.append(torch.where(needs_fb, fb_val, value_r).reshape(S, capacity))
+        del shard_out
 
-    # the inverse a2a: owner d's row s carries the answers for the rows
-    # source s sent to d, in their original slots; every unused row lands
-    # on the dump slot n_local, the one index that repeats, cut off
-    back_v = all_to_all(backs_v, mesh)
-    back_k = all_to_all(backs_k, mesh)
-    out_v, out_k = [], []
-    for s, (inv, dest) in enumerate(routes):
-        d = inv.device
-        v = torch.full((n_local + 1,), NOT_FOUND, dtype=VAL_DTYPE, device=d)
-        k = torch.full((n_local + 1,), EMPTY, dtype=KEY_DTYPE, device=d)
-        v.scatter_(0, dest.long(), back_v[s].reshape(-1))
-        k.scatter_(0, dest.long(), back_k[s].reshape(-1))
-        out_v.append(_on(v[:n_local][inv], out))
-        out_k.append(_on(k[:n_local][inv], out))
-    _mark("combine")
+        # the inverse a2a: owner d's row s carries the answers for the rows
+        # source s sent to d, in their original slots; every unused row lands
+        # on the dump slot n_local, the one index that repeats, cut off
+        back_v = all_to_all(backs_v, mesh)
+        back_k = all_to_all(backs_k, mesh)
+        out_v, out_k = [], []
+        for s, (inv, dest) in enumerate(routes):
+            d = inv.device
+            v = torch.full((n_local + 1,), NOT_FOUND, dtype=VAL_DTYPE, device=d)
+            k = torch.full((n_local + 1,), EMPTY, dtype=KEY_DTYPE, device=d)
+            v.scatter_(0, dest.long(), back_v[s].reshape(-1))
+            k.scatter_(0, dest.long(), back_k[s].reshape(-1))
+            out_v.append(_on(v[:n_local][inv], out))
+            out_k.append(_on(k[:n_local][inv], out))
 
     if has_ranges:
-        counts_all = all_gather([f for _, f in locals_], mesh)
-        win = _range_windows(_on(counts_all[0], out), isr_s, max_results)
-        for me, (new, (rank_lo, full)) in enumerate(zip(new_states, locals_)):
-            d = new.device
-            wd = {k: _on(v, d) for k, v in win.items()}
-            contrib[me]["rk"], contrib[me]["rv"] = _range_contrib(new, wd, me, rank_lo, full)
-        del locals_
-        _mark("range")
+        with trace.span("shard.range"):
+            counts_all = all_gather([f for _, f in locals_], mesh)
+            win = _range_windows(_on(counts_all[0], out), isr_s, max_results)
+            for me, (new, (rank_lo, full)) in enumerate(zip(new_states, locals_)):
+                d = new.device
+                wd = {k: _on(v, d) for k, v in win.items()}
+                contrib[me]["rk"], contrib[me]["rv"] = _range_contrib(new, wd, me, rank_lo, full)
+            del locals_
 
-    summed = {k: psum([c[k] for c in contrib], out) for k in contrib[0]}
-    n = ops.size
-    if has_ranges:
-        rk = torch.where(win["valid"], summed["rk"], EMPTY)
-        rv = torch.where(win["valid"], summed["rv"], NOT_FOUND)
-        # the per-op offsets back to their input rows (sorted-by-lo order
-        # → batch order); non-RANGE rows go to the dump slot n
-        back = torch.where(isr_s, gorder, n)
-        zeros = torch.zeros((n + 1,), dtype=torch.int32, device=out)
-        rstart = zeros.clone().scatter_(0, back, torch.where(isr_s, win["start"], 0))[:n]
-        rcnt = zeros.scatter_(0, back, torch.where(isr_s, win["emit"], 0))[:n]
-        rtrunc = win["truncated"]
-    else:
-        rk, rv, rstart, rcnt, rtrunc = _empty_range_outputs(n, max_results, out)
-    results = {
-        "value": torch.cat(out_v),
-        "succ_key": torch.cat(out_k),
-        "range_key": rk,
-        "range_val": rv,
-        "range_start": rstart,
-        "range_count": rcnt,
-    }
-    stats = {
-        "inserted": summed["inserted"],
-        "deleted": summed["deleted"],
-        "overflowed_buckets": summed["overflowed_buckets"],
-        "range_truncated": rtrunc,
-        "a2a_overflow": summed["a2a_overflow"],
-    }
-    if has_ttl:
-        stats["expired"] = summed["expired"]
-    states = _set_restructure(new_states, summed["restructure"] > 0)
-    _mark("combine")
-    return states, results, stats
+    with trace.span("shard.combine"):
+        summed = {k: psum([c[k] for c in contrib], out) for k in contrib[0]}
+        n = ops.size
+        if has_ranges:
+            rk = torch.where(win["valid"], summed["rk"], EMPTY)
+            rv = torch.where(win["valid"], summed["rv"], NOT_FOUND)
+            # the per-op offsets back to their input rows (sorted-by-lo order
+            # → batch order); non-RANGE rows go to the dump slot n
+            back = torch.where(isr_s, gorder, n)
+            zeros = torch.zeros((n + 1,), dtype=torch.int32, device=out)
+            rstart = zeros.clone().scatter_(0, back, torch.where(isr_s, win["start"], 0))[:n]
+            rcnt = zeros.scatter_(0, back, torch.where(isr_s, win["emit"], 0))[:n]
+            rtrunc = win["truncated"]
+        else:
+            rk, rv, rstart, rcnt, rtrunc = _empty_range_outputs(n, max_results, out)
+        results = {
+            "value": torch.cat(out_v),
+            "succ_key": torch.cat(out_k),
+            "range_key": rk,
+            "range_val": rv,
+            "range_start": rstart,
+            "range_count": rcnt,
+        }
+        stats = {
+            "inserted": summed["inserted"],
+            "deleted": summed["deleted"],
+            "overflowed_buckets": summed["overflowed_buckets"],
+            "range_truncated": rtrunc,
+            "a2a_overflow": summed["a2a_overflow"],
+        }
+        if has_ttl:
+            stats["expired"] = summed["expired"]
+        states = _set_restructure(new_states, summed["restructure"] > 0)
+        return states, results, stats
 
 
 # a2a capacity headroom over the uniform per-destination share: uniform

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.state import EMPTY, FliXState, bucket_chunks
 
 # "never expires"; equal to EMPTY, so an all-EMPTY plane is the identity
@@ -45,7 +46,8 @@ def expire_state(state: FliXState, now):
     expired = (state.keys != EMPTY) & (state.exps <= now)
     changed = expired.any(dim=2).any(dim=1)  # [nb]
     n_expired = expired.sum(dtype=torch.int32)
-    hit = torch.nonzero(changed)[:, 0]
+    with trace.span(trace.SYNC + "ttl.expired_buckets"):  # nonzero reads the count back
+        hit = torch.nonzero(changed)[:, 0]
     if hit.numel() == 0:
         return state, n_expired
 

@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.batch import bucket_slices
 from repro_torch.core.config import DEFAULT_MAX_RESULTS, ExecConfig
 from repro_torch.core.delete import delete
@@ -120,31 +121,33 @@ def make_ops(
     from repro_torch.core.expiry import NO_EXPIRY
 
     dev = resolve_device(device)
-    tags = torch.as_tensor(tags).to(device=dev, dtype=OP_DTYPE)
-    keys = torch.as_tensor(keys).to(device=dev, dtype=KEY_DTYPE)
-    if vals is None:
-        vals = torch.zeros(keys.shape, dtype=VAL_DTYPE, device=dev)
-    vals = torch.as_tensor(vals).to(device=dev, dtype=VAL_DTYPE)
-    if exps is not None:
-        exps = torch.as_tensor(exps).to(device=dev, dtype=KEY_DTYPE)
-    if pad_to is not None and pad_to > keys.shape[0]:
-        extra = pad_to - keys.shape[0]
-        tags = torch.cat([tags, tags.new_full((extra,), OP_NOP)])
-        keys = torch.cat([keys, keys.new_full((extra,), EMPTY)])
-        vals = torch.cat([vals, vals.new_zeros((extra,))])
+    with trace.span("make_ops"):
+        tags = torch.as_tensor(tags).to(device=dev, dtype=OP_DTYPE)
+        keys = torch.as_tensor(keys).to(device=dev, dtype=KEY_DTYPE)
+        if vals is None:
+            vals = torch.zeros(keys.shape, dtype=VAL_DTYPE, device=dev)
+        vals = torch.as_tensor(vals).to(device=dev, dtype=VAL_DTYPE)
         if exps is not None:
-            exps = torch.cat([exps, exps.new_full((extra,), NO_EXPIRY)])
-    order = torch.argsort(keys, stable=True)
-    # inverse permutation (input position -> sorted position) by O(N) scatter
-    perm = torch.empty_like(order)
-    perm[order] = torch.arange(order.shape[0], device=dev)
-    exp = None if exps is None else exps[order]
-    return OpBatch(tag=tags[order], key=keys[order], val=vals[order], exp=exp), perm
+            exps = torch.as_tensor(exps).to(device=dev, dtype=KEY_DTYPE)
+        if pad_to is not None and pad_to > keys.shape[0]:
+            extra = pad_to - keys.shape[0]
+            tags = torch.cat([tags, tags.new_full((extra,), OP_NOP)])
+            keys = torch.cat([keys, keys.new_full((extra,), EMPTY)])
+            vals = torch.cat([vals, vals.new_zeros((extra,))])
+            if exps is not None:
+                exps = torch.cat([exps, exps.new_full((extra,), NO_EXPIRY)])
+        order = torch.argsort(keys, stable=True)
+        # inverse permutation (input position -> sorted position) by O(N) scatter
+        perm = torch.empty_like(order)
+        perm[order] = torch.arange(order.shape[0], device=dev)
+        exp = None if exps is None else exps[order]
+        return OpBatch(tag=tags[order], key=keys[order], val=vals[order], exp=exp), perm
 
 
 def unsort(sorted_result: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """Map a sorted-order result array back to submission order."""
-    return sorted_result[perm]
+    with trace.span("unsort"):
+        return sorted_result[perm]
 
 
 def touched_buckets(mkba_host, tag, key, val, *, live=None, min_exp=None, now=None):
@@ -286,26 +289,27 @@ def route(state: FliXState, tag: torch.Tensor, key: torch.Tensor, val: torch.Ten
     """One ``bucket_slices`` routing of the whole batch, plus the insert and
     delete views mapped onto it by prefix counts (no second sort, no second
     fence routing).  Shared by both executors."""
-    starts, ends = bucket_slices(state, key)
-    is_ins = tag == OP_INSERT
-    is_del = tag == OP_DELETE
-    ins_keys, ins_vals = _compact_by_mask(key, is_ins, val)
-    del_keys = _compact_by_mask(key, is_del)
-    c_ins = _prefix_counts(is_ins)
-    c_del = _prefix_counts(is_del)
-    return Routing(
-        starts=starts,
-        ends=ends,
-        is_ins=is_ins,
-        is_del=is_del,
-        ins_keys=ins_keys,
-        ins_vals=ins_vals,
-        del_keys=del_keys,
-        ins_starts=c_ins[starts],
-        ins_ends=c_ins[ends],
-        del_starts=c_del[starts],
-        del_ends=c_del[ends],
-    )
+    with trace.span("route"):
+        starts, ends = bucket_slices(state, key)
+        is_ins = tag == OP_INSERT
+        is_del = tag == OP_DELETE
+        ins_keys, ins_vals = _compact_by_mask(key, is_ins, val)
+        del_keys = _compact_by_mask(key, is_del)
+        c_ins = _prefix_counts(is_ins)
+        c_del = _prefix_counts(is_del)
+        return Routing(
+            starts=starts,
+            ends=ends,
+            is_ins=is_ins,
+            is_del=is_del,
+            ins_keys=ins_keys,
+            ins_vals=ins_vals,
+            del_keys=del_keys,
+            ins_starts=c_ins[starts],
+            ins_ends=c_ins[ends],
+            del_starts=c_del[starts],
+            del_ends=c_del[ends],
+        )
 
 
 def derive_type_views(
@@ -353,15 +357,17 @@ def _apply_ops_reference(
     )
 
     # --- update phase: merge inserts, then physical deletes ---------------
-    if bool(is_ins.any()):
-        s1, ins_stats = insert_with_slices(
-            state, ins_keys, ins_vals, ins_starts, ins_ends
-        )
+    if trace.host_bool(is_ins.any(), "reference.has_insert"):
+        with trace.span("reference.insert"):
+            s1, ins_stats = insert_with_slices(
+                state, ins_keys, ins_vals, ins_starts, ins_ends
+            )
     else:
         s1 = state
         ins_stats = {"inserted": _zero(dev), "overflowed_buckets": _zero(dev)}
-    if bool(is_del.any()):
-        s2, del_stats = delete(s1, del_keys)
+    if trace.host_bool(is_del.any(), "reference.has_delete"):
+        with trace.span("reference.delete"):
+            s2, del_stats = delete(s1, del_keys)
     else:
         s2, del_stats = s1, {"deleted": _zero(dev)}
 
@@ -369,20 +375,26 @@ def _apply_ops_reference(
     is_point = tag == OP_POINT
     is_succ = tag == OP_SUCCESSOR
     miss = torch.full((n,), NOT_FOUND, dtype=VAL_DTYPE, device=dev)
-    pv = point_query(s2, key) if bool(is_point.any()) else miss
-    if bool(is_succ.any()):
-        sk, sv = successor_query(s2, key)
+    if trace.host_bool(is_point.any(), "reference.has_point"):
+        with trace.span("reference.point"):
+            pv = point_query(s2, key)
+    else:
+        pv = miss
+    if trace.host_bool(is_succ.any(), "reference.has_successor"):
+        with trace.span("reference.successor"):
+            sk, sv = successor_query(s2, key)
     else:
         sk, sv = torch.full((n,), EMPTY, dtype=KEY_DTYPE, device=dev), miss
 
     # --- range phase: dense [lo, hi) scans against the updated state ------
     is_range = tag == OP_RANGE
     if has_ranges is None:
-        has_ranges = bool(is_range.any())
+        has_ranges = trace.host_bool(is_range.any(), "reference.has_range")
     if has_ranges:
-        rk, rv, rstart, rcnt, rtrunc = dense_range_scan(
-            s2, is_range, key, val, max_results=max_results
-        )
+        with trace.span("reference.range"):
+            rk, rv, rstart, rcnt, rtrunc = dense_range_scan(
+                s2, is_range, key, val, max_results=max_results
+            )
     else:
         rk = torch.full((max_results,), EMPTY, dtype=KEY_DTYPE, device=dev)
         rv = torch.full((max_results,), NOT_FOUND, dtype=VAL_DTYPE, device=dev)
@@ -458,16 +470,18 @@ def _apply_ops_ttl(
     tag, key, val = ops.tag, ops.key, ops.val
     exp = ops.exp if ops.exp is not None else torch.full_like(key, NO_EXPIRY)
     if now is not None:
-        state, n_expired = expire_state(state, now)
+        with trace.span("ttl.expire"):
+            state, n_expired = expire_state(state, now)
     else:
         n_expired = _zero(state.device)
 
     is_exp = tag == OP_EXPIRE
     value_state = dataclasses.replace(state, exps=None)
     exp_state = dataclasses.replace(state, vals=state.exps, exps=None)
-    if bool(is_exp.any()):
-        sk, stored = successor_query(value_state, key)
-        present = is_exp & (sk == key)
+    if trace.host_bool(is_exp.any(), "ttl.has_expire"):
+        with trace.span("ttl.probe"):
+            sk, stored = successor_query(value_state, key)
+            present = is_exp & (sk == key)
     else:
         present = torch.zeros_like(is_exp)
         stored = torch.full_like(key, NOT_FOUND)
@@ -545,7 +559,7 @@ def apply_ops(
             impl = "reference"
         else:
             if has_updates is None:
-                has_updates = bool(_update_mask(ops.tag).any())
+                has_updates = trace.host_bool(_update_mask(ops.tag).any(), "has_updates")
             impl = "fused" if has_updates else "reference"
     # TTL is structural: an expiry column on the state or on the batch
     if state.exps is not None or ops.exp is not None:
@@ -578,30 +592,39 @@ def apply_ops_safe(
     past their deadline, which stay live until the next batch's expire pass.
     The returned ``stats`` gains ``restructure_retries`` (host int).
     """
-    cfg = config if config is not None else ExecConfig()
-    run_cfg = cfg.replace(validate=False, validate_ranges=False)
-    restructure_retries = 0
-    new_state, results, stats = apply_ops(
-        state, ops, config=run_cfg, has_updates=has_updates, now=now
-    )
-    if bool(new_state.needs_restructure) and not bool(state.needs_restructure):
-        n_ins = int(((ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)).sum())
-        grown = restructure_grow(state, extra_keys=max(n_ins, 1))
+    with trace.span("apply_ops_safe"):
+        cfg = config if config is not None else ExecConfig()
+        run_cfg = cfg.replace(validate=False, validate_ranges=False)
+        restructure_retries = 0
         new_state, results, stats = apply_ops(
-            grown, ops, config=run_cfg, has_updates=has_updates, now=now
+            state, ops, config=run_cfg, has_updates=has_updates, now=now
         )
-        if bool(new_state.needs_restructure):
-            raise RuntimeError("batch overflowed the geometry restructure_grow planned")
-        restructure_retries = 1
-    stats = dict(stats)
-    stats["restructure_retries"] = restructure_retries
-    if cfg.validate_ranges:
-        check_range_results(ops, results, max_results=cfg.max_results)
-    if cfg.validate:
-        check_now = now
-        if now is not None and ops.exp is not None:
-            wrote = (ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)
-            if bool((wrote & (ops.exp <= int(now))).any()):
-                check_now = None
-        check_invariants(new_state, now=check_now)
-    return new_state, results, stats
+        if trace.host_bool(new_state.needs_restructure, "needs_restructure") and not (
+            trace.host_bool(state.needs_restructure, "input_needs_restructure")
+        ):
+            with trace.span("restructure"):
+                n_ins = trace.host_int(
+                    ((ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)).sum(), "restructure.inserts"
+                )
+                grown = restructure_grow(state, extra_keys=max(n_ins, 1))
+                new_state, results, stats = apply_ops(
+                    grown, ops, config=run_cfg, has_updates=has_updates, now=now
+                )
+                if trace.host_bool(new_state.needs_restructure, "restructure.retry_overflowed"):
+                    raise RuntimeError("batch overflowed the geometry restructure_grow planned")
+            restructure_retries = 1
+        stats = dict(stats)
+        stats["restructure_retries"] = restructure_retries
+        if cfg.validate_ranges or cfg.validate:
+            with trace.span("validate"):
+                if cfg.validate_ranges:
+                    check_range_results(ops, results, max_results=cfg.max_results)
+                if cfg.validate:
+                    check_now = now
+                    if now is not None and ops.exp is not None:
+                        wrote = (ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)
+                        wrote_expired = (wrote & (ops.exp <= int(now))).any()
+                        if trace.host_bool(wrote_expired, "validate.wrote_expired"):
+                            check_now = None
+                    check_invariants(new_state, now=check_now)
+        return new_state, results, stats

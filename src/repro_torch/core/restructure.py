@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.build import build_from_sorted, plan_geometry
 from repro_torch.core.state import EMPTY, FliXState
 
@@ -54,7 +55,7 @@ def restructure(
 
 def plan(state: FliXState, *, extra_keys: int = 0, fill: float = 0.5):
     """Host-side geometry planning from the current live count."""
-    live = int(state.live_keys()) + extra_keys
+    live = trace.host_int(state.live_keys(), "restructure.live_keys") + extra_keys
     return plan_geometry(
         live,
         node_size=state.node_size,
@@ -89,7 +90,7 @@ def restructure_shrink(
     Returns ``(new_state, reclaimed_bytes)``: the drop in allocated bytes,
     0 when the structure could not shrink.
     """
-    live = int(state.live_keys())
+    live = trace.host_int(state.live_keys(), "restructure.live_keys")
     p = max(1, int(state.node_size * fill))
     nb = max(1, math.ceil(live / p))
     if nodes_per_bucket is None:
@@ -118,7 +119,7 @@ def restructure_grow(
     the reference's sizing, kept as it is (ROADMAP Queue 3 logs what it
     asks for at full size).
     """
-    live = int(state.live_keys())
+    live = trace.host_int(state.live_keys(), "restructure.live_keys")
     p = max(1, int(state.node_size * fill))
     nb = max(1, math.ceil((live + extra_keys) / p))
     cap = state.nodes_per_bucket * state.node_size

@@ -12,6 +12,7 @@ import ctypes
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels._build import load_library
 
 # launches per kernel since the last reset; a run reads these to show that
@@ -82,16 +83,18 @@ def check_smem(
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with tensors as device pointers and
     ints as ints, on the current stream of ``device``; raise on its CUDA
-    error code, else count one launch of ``kernel``."""
-    _require_cuda(kernel, device)
-    lib = load_library()
-    conv = [
-        ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
-        for a in args
-    ]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    error code, else count one launch of ``kernel``; the host side of it is
+    the span ``launch.<kernel>``."""
+    with trace.span("launch." + kernel):
+        _require_cuda(kernel, device)
+        lib = load_library()
+        conv = [
+            ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+            for a in args
+        ]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
+        LAUNCHES[kernel] += 1

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.batch import gather_kv_sublists
 from repro_torch.core.config import DEFAULT_MAX_RESULTS
 from repro_torch.core.ops import OP_POINT, OP_RANGE, OP_SUCCESSOR, route
@@ -434,25 +435,27 @@ def flix_apply(
 
     # SUCCESSOR past its bucket's largest post-update key: the first key of
     # the next non-empty bucket, from the post-update fence rows
-    next_key, next_val = fence_rows(okeys, ovals, num_nodes=onn)
-    b = _bucket_index(state, key)
-    out_key = next_key[b]
-    out_val = next_val[b]
-    fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
-    succ_key = torch.where(fallback, out_key, succ_key)
-    value = torch.where(fallback & (out_key != EMPTY), out_val, value)
+    with trace.span("fused.successor"):
+        next_key, next_val = fence_rows(okeys, ovals, num_nodes=onn)
+        b = _bucket_index(state, key)
+        out_key = next_key[b]
+        out_val = next_val[b]
+        fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
+        succ_key = torch.where(fallback, out_key, succ_key)
+        value = torch.where(fallback & (out_key != EMPTY), out_val, value)
 
     # RANGE: post-update rank fences and per-slot ranks, then the gather
     is_range = tag == OP_RANGE
     if has_ranges is None:
-        has_ranges = bool(is_range.any())
+        has_ranges = trace.host_bool(is_range.any(), "has_ranges")
     if has_ranges:
-        g, pref, rstart, remit, rtrunc = range_slots(
-            new_state, is_range, key, val, max_results
-        )
-        rk, rv = flix_apply_range_pass(g, pref, ocnt, okeys, ovals)
-        range_start = torch.where(is_range, rstart, 0)
-        range_count = torch.where(is_range, remit, 0)
+        with trace.span("fused.range"):
+            g, pref, rstart, remit, rtrunc = range_slots(
+                new_state, is_range, key, val, max_results
+            )
+            rk, rv = flix_apply_range_pass(g, pref, ocnt, okeys, ovals)
+            range_start = torch.where(is_range, rstart, 0)
+            range_count = torch.where(is_range, remit, 0)
     else:
         rk = torch.full((max_results,), EMPTY, dtype=torch.int32, device=dev)
         rv = torch.full((max_results,), NOT_FOUND, dtype=torch.int32, device=dev)
