@@ -70,13 +70,21 @@ line, and no phase catches its own failure:
                 POINT half hits, 9% SUCCESSOR, 1% RANGE of width 64,
                 max_results=65536) through make_ops → apply_ops_safe →
                 unsort, each with ``pipeline="off"`` (the single-buffer
-                stripe kernel) and ``pipeline="on"`` (the staged one).  Each
-                run must launch its stripe kernel and the range gather,
-                must rank its RANGE ops by one launch of the count kernel
+                stripe kernel), with ``pipeline="on"`` and ``donate=False``
+                (the staged one, functional) and with the default config
+                on a copy of the state (the staged kernel's donated pass,
+                flix_apply_staged_inplace).  Each run must launch its stripe
+                kernel and no other, and the range gather, must rank its
+                RANGE ops by one launch of the count kernel
                 (flix_apply_rank) and by no torch node_rank on the card, and
-                must not retry; both runs are held against each other and
+                must not retry; the runs are held against each other and
                 against the port's plain-torch reference engine on the card,
-                and the final state passes the invariant checker;
+                and the final state passes the invariant checker; on it, a
+                mixed batch of 2^14 and one of 2^20 ops hold the donated
+                pass to its plain version, the functional staged pass and
+                the single-buffer kernel, and time it in turns with the
+                staged pass beside its bound (``flixbench/roofline.py``'s
+                bytes);
                 ``core.merge_underfull`` then repacks it once, timed, with
                 I1-I5 holding and every bucket's live pairs kept.  Each batch
                 times the range gather and the count kernel at the fused
@@ -474,13 +482,23 @@ MOE_RUNS = (
 )
 MOE_TIME_MS = 100  # CUDA-event window per timed GEMM
 FFN_PART_REPS = 5  # FFN runs timed part by part
-STRIPE_KERNEL = {"off": "flix_apply", "on": "flix_apply_staged"}
+# phase 4's three paths: the single-buffer kernel, the functional staged
+# kernel (what a caller that keeps its input runs) and the engine's default,
+# the staged kernel's donated pass
+STRIPE_KERNEL = {"off": "flix_apply", "staged": "flix_apply_staged",
+                 "on": "flix_apply_staged_inplace"}
+PHASE4_PATHS = {"off": dict(pipeline="off", donate=False),
+                "staged": dict(pipeline="on", donate=False), "on": {}}
 CSRC = "src/repro_torch/csrc/"
 # kernel: (source, the TPU kernel it replaces)
 KERNELS = {
     "flix_apply": ("flix_apply.cu", "src/repro/kernels/flix_apply.py:88"),
     "flix_apply_staged": ("flix_apply_staged.cu",
                           "src/repro/kernels/flix_apply.py:414"),
+    # the donated pass (plan and in-place write), where the reference donates
+    # its state to the jitted kernel
+    "flix_apply_staged_inplace": ("flix_apply_staged.cu",
+                                  "src/repro/kernels/flix_apply.py:851"),
     "flix_apply_range": ("flix_range.cu", "src/repro/kernels/flix_apply.py:327"),
     # the jnp rank plumbing that flix_apply_pallas runs beside its kernel
     "flix_apply_rank": ("flix_range.cu", "src/repro/kernels/flix_apply.py:558"),
@@ -705,6 +723,8 @@ class KernelCheck:
         e1 = max_abs_err(want, got)
         e3 = max(max_abs_err(want, staged), max_abs_err(got, staged))
         self.err["flix_apply_staged"] = max(self.err["flix_apply_staged"], e3)
+        e6 = check_donated(state, ops, args, staged, label)[0]
+        self.err["flix_apply_staged_inplace"] = max(self.err["flix_apply_staged_inplace"], e6)
         del staged
         new = FliXState(*got[:5], mkba=state.mkba, needs_restructure=state.needs_restructure)
         is_range = ops.tag == core.OP_RANGE
@@ -721,18 +741,66 @@ class KernelCheck:
         self.err["flix_apply_rank"] = max(self.err["flix_apply_rank"], e4)
         log(f"  {label}: flix_apply max_abs_err={e1}, flix_apply_staged max_abs_err={e3} "
             f"(against the plain version and the single-buffer kernel), "
+            f"flix_apply_staged_inplace max_abs_err={e6}, "
             f"flix_apply_range max_abs_err={e2}, flix_apply_rank max_abs_err={e4}")
-        if e1 or e2 or e3 or e4:
+        if e1 or e2 or e3 or e4 or e6:
             raise AssertionError(f"{label}: a kernel disagrees with its plain version")
         return args, got
 
 
+def cloned(state):
+    """The state with copies of its planes, for a call that donates them."""
+    import dataclasses
+
+    return dataclasses.replace(state, keys=state.keys.clone(), vals=state.vals.clone(),
+                               node_count=state.node_count.clone(),
+                               node_max=state.node_max.clone())
+
+
+def check_donated(state, ops, args, staged, label):
+    """The donated pass (``flix_apply_inplace_pass``) on copies of the
+    state's planes, against its plain version on other copies (every output
+    and plane) and against the functional staged pass's outputs ``staged``:
+    where no bucket overflows, the keys, counts, node max, num_nodes and
+    reads equal and the values at live slots; where one does, the copies
+    untouched.  Returns the largest difference from the plain version and
+    the plain version's host ms."""
+    from repro_torch.core.query import _bucket_index
+    from repro_torch.core.state import EMPTY
+    from repro_torch.kernels import flix_apply as fa
+
+    copies = [cloned(state) for _ in range(2)]
+    b = _bucket_index(state, ops.key)
+    got, (want, plain_ms) = (
+        host_ms(lambda: fn(c.num_nodes, c.node_count, c.needs_restructure, ops.val, b, c.keys,
+                           c.vals, c.node_max, *args[3:]))
+        for fn, c in zip((fa.flix_apply_inplace_pass, fa.flix_apply_inplace_reference),
+                         copies))
+    got = got[0]
+    planes = [(c.keys, c.vals, c.node_count, c.node_max) for c in copies]
+    err = max(max_abs_err(want, got), max_abs_err(planes[1], planes[0]))
+    k, v, cnt, mx = planes[0]
+    if int(got[3][2]) == 0 and not bool(state.needs_restructure):
+        live = staged[0] != EMPTY
+        same = (torch.equal(k, staged[0]) and torch.equal(v[live], staged[1][live])
+                and torch.equal(cnt, staged[2]) and torch.equal(mx, staged[3])
+                and torch.equal(got[0], staged[4]) and torch.equal(got[1], staged[7])
+                and torch.equal(got[2], staged[8]))
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(
+            planes[0], (state.keys, state.vals, state.node_count, state.node_max)))
+    if not same:
+        raise AssertionError(f"{label}: the donated pass disagrees with the functional one")
+    return err, plain_ms
+
+
 def compare_engines(label, state, ops, config, *, expect_retries=None):
-    """The engine on its default path (the kernels) against the port's
-    plain-torch reference engine on the card: equal state and results."""
+    """The engine on its default path (the kernels, donating a copy of the
+    state) against the port's plain-torch reference engine on the card:
+    equal state and results."""
     from repro_torch import core
 
-    fused = core.apply_ops_safe(state, ops, config=config)
+    fused = core.apply_ops_safe(cloned(state), ops, config=config)
     ref = core.apply_ops_safe(state, ops, config=config.replace(impl="reference"))
     check_same(label, fused, ref)
     if expect_retries is not None:
@@ -1087,25 +1155,28 @@ def phase_main(dev):
     log(f"  geometry nb={nb} npb={npb} ns={ns}, {state.memory_bytes() / 1e9:.3f} GB of state, "
         f"build {build_ms:.1f} ms")
     cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS)
-    launches = {k: 0 for k in ("flix_apply", "flix_apply_staged", "flix_apply_range",
+    launches = {k: 0 for k in (*STRIPE_KERNEL.values(), "flix_apply_range",
                                "flix_apply_rank", "flix_fence_rows")}
-    e2e = {"off": [], "on": []}
-    k_ms = {"off": [], "on": []}
+    e2e = {pipe: [] for pipe in PHASE4_PATHS}
+    k_ms = {"off": [], "staged": []}
     r_ms, r_queued_ms, rbounds, empty_ms = [], [], [], []
     rank_ms, rank_queued_ms, rank_bounds, node_rank_ms = [], [], [], []
     f_ms, f_call_ms, f_torch_ms, fbounds = [], [], [], []
-    bounds = {"off": [], "on": []}
+    bounds = {"off": [], "staged": []}
     for i in range(FULL_BATCHES):
         tags, keys, vals = traffic.mixed(FULL_OPS)
         runs = {}
-        for pipe in ("off", "on"):
+        for pipe, path in PHASE4_PATHS.items():
+            # the default path donates its input: a copy, so that the others
+            # and the checks below read the batch's input state
+            src = cloned(state) if pipe == "on" else state
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
             with torch_rank_calls() as torch_ranks:
                 ops, perm = core.make_ops(tags, keys, vals)
                 new_state, res, stats = core.apply_ops_safe(
-                    state, ops, config=cfg.replace(pipeline=pipe)
+                    src, ops, config=cfg.replace(**path)
                 )
                 value = core.unsort(res["value"], perm)
                 torch.cuda.synchronize()
@@ -1118,21 +1189,23 @@ def phase_main(dev):
                 raise AssertionError(f"batch {i} ({pipe}): its RANGE ops were ranked by "
                                      f"{counts['flix_apply_rank']} count-kernel launches and "
                                      f"{len(torch_ranks)} torch node_rank calls (want 1, 0)")
-            other = STRIPE_KERNEL["on" if pipe == "off" else "off"]
-            if counts[other]:
-                raise AssertionError(f"batch {i} ({pipe}): {other} was launched")
+            others = [k for p, k in STRIPE_KERNEL.items() if p != pipe and counts[k]]
+            if others:
+                raise AssertionError(f"batch {i} ({pipe}): {others} was launched")
             for k, c in counts.items():
                 launches[k] += c
             assert stats["restructure_retries"] == 0, stats
             assert value.shape == (FULL_OPS,)
             runs[pipe] = (new_state, res, stats)
-        check_same(f"full batch {i}: pipeline on vs off", runs["on"], runs["off"])
+            del src
+        check_same(f"full batch {i}: staged vs single-buffer", runs["staged"], runs["off"])
+        check_same(f"full batch {i}: donated vs single-buffer", runs["on"], runs["off"])
 
         ref, ref_ms = host_ms(
             lambda: core.apply_ops_safe(state, ops, config=cfg.replace(impl="reference"))
         )
-        check_same(f"full batch {i}", runs["off"], ref)
-        check_same(f"full batch {i} (staged)", runs["on"], ref)
+        for pipe, run in runs.items():
+            check_same(f"full batch {i} ({STRIPE_KERNEL[pipe]})", run, ref)
         del ref
         new_state, res, stats = runs.pop("off")
         del runs
@@ -1143,8 +1216,8 @@ def phase_main(dev):
         args_nn = state.num_nodes
         single = lambda: fa.flix_apply_pass(*args)  # noqa: E731
         staged = lambda: fa.flix_apply_staged_pass(args_nn, *args)  # noqa: E731
-        turns = [("off", single), ("on", staged), ("on", staged), ("off", single)]
-        times = {"off": [], "on": []}
+        turns = [("off", single), ("staged", staged), ("staged", staged), ("off", single)]
+        times = {"off": [], "staged": []}
         for pipe, fn in turns:
             times[pipe].append(event_ms(fn, 2))
         for pipe in times:
@@ -1172,7 +1245,7 @@ def phase_main(dev):
         rank_bounds.append(range_count_bytes(new_state, ops.key, ops.val, is_range)
                            / HBM_BYTES_PER_S * 1e3)
         outs = fa.flix_apply_pass(*args)
-        moved = {pipe: stripe_pass_bytes(state, ops, r, outs, staged=pipe == "on")
+        moved = {pipe: stripe_pass_bytes(state, ops, r, outs, staged=pipe == "staged")
                  for pipe in bounds}
         for pipe in bounds:
             bounds[pipe].append(moved[pipe] / HBM_BYTES_PER_S * 1e3)
@@ -1193,10 +1266,11 @@ def phase_main(dev):
         f_torch_ms.append((ft[1] + ft[2]) / 2)
         fbounds.append(fence_bytes(new_state, num_nodes=True) / HBM_BYTES_PER_S * 1e3)
         log(f"  batch {i}: end to end {e2e['off'][-1]:.3f} ms (pipeline off), "
-            f"{e2e['on'][-1]:.3f} ms (on), {FULL_OPS / e2e['on'][-1] * 1e3:.6g} ops/s (on); "
-            f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['on'][-1]:.4f} ms "
-            f"(bounds {bounds['off'][-1]:.4f} / {bounds['on'][-1]:.4f} ms, "
-            f"{moved['off']} / {moved['on']} bytes), "
+            f"{e2e['staged'][-1]:.3f} ms (on, not donated), {e2e['on'][-1]:.3f} ms (the "
+            f"default: donated), {FULL_OPS / e2e['on'][-1] * 1e3:.6g} ops/s (donated); "
+            f"flix_apply {k_ms['off'][-1]:.4f} ms, flix_apply_staged {k_ms['staged'][-1]:.4f} "
+            f"ms (bounds {bounds['off'][-1]:.4f} / {bounds['staged'][-1]:.4f} ms, "
+            f"{moved['off']} / {moved['staged']} bytes), "
             f"range gather {r_ms[-1]:.4f} ms a call, {r_queued_ms[-1]:.4f} queued (bound "
             f"{rbounds[-1]:.5f} ms; an empty kernel {empty_ms[-1]:.4f} queued); RANGE ranks "
             f"by the count kernel {rank_ms[-1]:.4f} ms a call, {rank_queued_ms[-1]:.4f} "
@@ -1213,9 +1287,12 @@ def phase_main(dev):
     core.check_range_results(ops, res, max_results=cfg.max_results)
     log(f"  invariants I1-I5 hold on the final state ({inv_ms:.0f} ms); "
         f"live keys {int(state.live_keys())}")
-    for pipe in ("off", "on"):
-        log(f"  pipeline={pipe}: median end to end {median(e2e[pipe]):.3f} ms, "
-            f"median {STRIPE_KERNEL[pipe]} {median(k_ms[pipe]):.4f} ms")
+    for pipe in PHASE4_PATHS:
+        kernel = (f", median {STRIPE_KERNEL[pipe]} {median(k_ms[pipe]):.4f} ms"
+                  if pipe in k_ms else "")
+        log(f"  {STRIPE_KERNEL[pipe]}'s path: median end to end {median(e2e[pipe]):.3f} ms"
+            + kernel)
+    donated = donated_line(state, traffic, cfg.max_results)
 
     # plain versions at the last batch's shapes: no yardstick of speed, they
     # repeat the kernels' arithmetic (the staged kernel's is the same one)
@@ -1252,8 +1329,15 @@ def phase_main(dev):
         "flix_apply": dict(launches=launches["flix_apply"], ms=fmean(k_ms["off"]),
                            plain_ms=plain_ms, bound_ms=fmean(bounds["off"]), err=e1),
         "flix_apply_staged": dict(launches=launches["flix_apply_staged"],
-                                  ms=fmean(k_ms["on"]), plain_ms=plain_ms,
-                                  bound_ms=fmean(bounds["on"]), err=e3),
+                                  ms=fmean(k_ms["staged"]), plain_ms=plain_ms,
+                                  bound_ms=fmean(bounds["staged"]), err=e3),
+        # launched by the main path's default batches; timed at the larger
+        # batch of the donated lines (DONATED_OPS[-1] ops)
+        "flix_apply_staged_inplace": dict(launches=launches["flix_apply_staged_inplace"],
+                                          ms=donated[-1]["ms"],
+                                          plain_ms=donated[-1]["plain_ms"],
+                                          bound_ms=donated[-1]["bound_ms"],
+                                          err=max(r["err"] for r in donated)),
         # ms: these kernels' device time (queued), since their wrappers' host
         # time is longer; call_ms: their time as a call
         "flix_apply_range": dict(launches=launches["flix_apply_range"], ms=fmean(r_queued_ms),
@@ -1266,6 +1350,77 @@ def phase_main(dev):
                                 call_ms=fmean(f_call_ms), plain_ms=fplain_ms,
                                 bound_ms=fmean(fbounds), err=e4),
     }
+
+
+DONATED_OPS = (1 << 14, 1 << 20)  # the benchmark's two YCSB-A batch sizes
+DONATED_REPS = 6  # timed calls of each pass, in turns
+
+
+def donated_line(state, traffic, max_results):
+    """Phase 4's donated pass on its final state (32-key nodes, 16 a
+    bucket, as the benchmark's flix-u26), one mixed batch of each of
+    DONATED_OPS ops: held to the functional staged pass, the single-buffer
+    witness and its plain version (:func:`check_donated`), then timed
+    queued (device time) in turns with the functional staged pass, the
+    planes of a copy restored before each donated call, beside its bound:
+    the bytes ``flixbench/roofline.py``'s ``apply_bytes`` counts (the
+    touched buckets' live rows read, the updated buckets' rows and metadata
+    written, the ops and answers) at 3.35 TB/s.  Returns one dict a batch
+    size."""
+    import types
+
+    from flixbench.roofline import apply_bytes
+    from repro_torch import core
+    from repro_torch.core.query import _bucket_index
+    from repro_torch.kernels import flix_apply as fa
+
+    nb, npb, ns = state.geometry
+    rows = []
+    for n in DONATED_OPS:
+        ops, _ = core.make_ops(*traffic.mixed(n), device=state.device)
+        args, _ = fa.stripe_inputs(state, ops.tag, ops.key, ops.val)
+        staged = fa.flix_apply_staged_pass(state.num_nodes, *args)
+        err = max_abs_err(staged, fa.flix_apply_pass(*args))
+        e, plain_ms = check_donated(state, ops, args, staged, f"donated pass, {n} ops")
+        err = max(err, e)
+        copy = cloned(state)
+        mine = (copy.keys, copy.vals, copy.node_count, copy.node_max)
+        pristine = (state.keys, state.vals, state.node_count, state.node_max)
+        cargs = (ops.val, _bucket_index(state, ops.key), copy.keys, copy.vals, copy.node_max,
+                 *args[3:])
+        out = {}
+
+        def donated():
+            out["d"] = fa.flix_apply_inplace_pass(copy.num_nodes, copy.node_count,
+                                                  copy.needs_restructure, *cargs)
+
+        def functional():
+            out["f"] = fa.flix_apply_staged_pass(state.num_nodes, *args)
+
+        times = {"donated": [], "staged": []}
+        for i in range(DONATED_REPS):
+            for name in (("donated", "staged") if i % 2 == 0 else ("staged", "donated")):
+                if name == "donated":
+                    for dst, src in zip(mine, pristine):  # the batch's input again
+                        dst.copy_(src)
+                times[name].append(queued_ms(donated if name == "donated" else functional, 1))
+        counts = out["d"][3].tolist()
+        batch = types.SimpleNamespace(tags=ops.tag, keys=ops.key, vals=ops.val)
+        moved = apply_bytes(batch, state.mkba, state.num_nodes, staged[4], npb, ns,
+                            max_results)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        row = dict(ops=n, ms=median(times["donated"]), staged_ms=median(times["staged"]),
+                   bound_ms=bound, bytes=moved, err=err, plain_ms=plain_ms)
+        log(f"  donated pass, {n} ops: {row['ms']:.4f} ms queued (median of "
+            f"{DONATED_REPS}: {', '.join(f'{t:.4f}' for t in times['donated'])}) against its "
+            f"{bound:.4f} ms bound ({moved} bytes, {row['ms'] / bound:.2f}x); the functional "
+            f"staged pass {row['staged_ms']:.4f} ms on the same batch; {counts[3]} of {nb} "
+            f"buckets merged ({counts[4]} checked), inserted {counts[0]} deleted {counts[1]} "
+            f"overflowed {counts[2]}; max_abs_err {err} (single-buffer witness, plain version "
+            f"{plain_ms:.1f} ms)")
+        rows.append(row)
+        del staged, copy, out, mine, cargs
+    return rows
 
 
 def check_merge_underfull(state) -> None:
@@ -2415,7 +2570,8 @@ def phase_durable(dev, smi):
             f"build's ({canon_ms:.0f} ms)")
 
         ref = KVPageIndex(**geometry, config=core.ExecConfig(impl="reference"), device=dev)
-        plain = KVPageIndex(**geometry, device=dev)
+        # steps the durable index's pre-step states, which ref may hold too
+        plain = KVPageIndex(**geometry, config=core.ExecConfig(donate=False), device=dev)
         ref.state = idx.state
         traffic = ServeTraffic(SEED + 4)  # phase 6's steps
         commits, crash_step, i = [], None, 0
@@ -3033,7 +3189,8 @@ def phase_tiered_small(dev):
         reset_launches()
         got = tiered.apply(ops, config=cfg)
         counts = {k: LAUNCHES[k] for k in SERVE_KERNELS}
-        want = (core.apply_ops_safe if safe else core.apply_ops)(oracle, ops, config=cfg)
+        want = (core.apply_ops_safe if safe else core.apply_ops)(
+            oracle, ops, config=cfg.replace(donate=False))  # the next budget starts from base
         check_tiered(label, got, want, counts)
         if int(got[1]["restructure_retries"]) != int(want[2].get("restructure_retries", 0)):
             raise AssertionError(f"{label}: retries {got[1]} != {want[2]}")
@@ -3516,7 +3673,7 @@ def phase_shard_small(dev):
         fresh = np.arange(SHARD_SMALL_SPACE, SHARD_SMALL_SPACE + 300, dtype=np.int32)
         bops = core.make_ops(np.full(fresh.size, core.OP_INSERT, np.int32), fresh, fresh * 3,
                              device=dev)[0]
-        want_b = core.apply_ops_safe(single, bops, config=core.ExecConfig())
+        want_b = core.apply_ops_safe(single, bops, config=core.ExecConfig(donate=False))
         for routing in ("replicated", "a2a"):
             got = run(f"3j S={S} burst {routing}", idx, mesh, bops,
                       core.ExecConfig(routing=routing), safe=True)
@@ -3657,7 +3814,7 @@ def phase_shard(dev, smi):
 
             def single_batch():
                 sops, sperm = core.make_ops(tags, bkeys, bvals, device=dev)
-                out = core.apply_ops_safe(single, sops, config=cfg)
+                out = core.apply_ops_safe(single, sops, config=cfg.replace(donate=False))
                 return out, core.unsort(out[1]["value"], sperm)
 
             (want, want_value), ms = host_ms(single_batch)
@@ -4509,7 +4666,12 @@ LM_MOE_TOKENS = 64
 LM_SERVE = ["--arch", LM_ARCH, "--batch", "16", "--steps", "48", "--max-len", "128"]
 LM_PATH_BASE = ["--arch", "musicgen-medium", "--reduced", "--batch", "4", "--steps", "32",
                 "--max-len", "64"]
-LM_UPDATE_KERNELS = ("flix_apply_staged", "flix_fence_rows")
+def update_launches(counts) -> int:
+    """The fewest of an index's update kernels: its stripe pass, functional
+    or donated (an index without pinned versions donates), and the fence
+    rows."""
+    return min(counts["flix_apply_staged"] + counts["flix_apply_staged_inplace"],
+               counts["flix_fence_rows"])
 
 
 def lm_close(label, got, want, tol) -> float:
@@ -4656,7 +4818,7 @@ def phase_lm_serve(dev, smi):
     if index_live_pairs(idx) != want:
         raise AssertionError("14b: the index's live pairs differ from the host model")
     updates = 3  # steps 0, 16 and 32
-    if min(launches[k] for k in LM_UPDATE_KERNELS) < updates:
+    if update_launches(launches) < updates:
         raise AssertionError(f"14b: an update step ran without its kernels: {launches}")
     ms = [s.elapsed_time(e) for s, e in decode]
     med = median(ms[1:])
@@ -4704,7 +4866,7 @@ def phase_lm_paths(dev):
             counts = {k: LAUNCHES[k] for k in KERNELS}
             if not any(expect in line for line in lines):
                 raise AssertionError(f"14c {label}: no line holds {expect!r}")
-            kernels = min(counts[k] for k in LM_UPDATE_KERNELS)
+            kernels = update_launches(counts)
             if (kernels == 0) != (label == "reference engine"):
                 raise AssertionError(f"14c {label}: launches {counts}")
             for k, c in counts.items():

@@ -88,8 +88,14 @@ class ExecConfig:
                        the slower one on the card and stays as the
                        counterpart of the reference's ``_apply_kernel`` and
                        as a second witness of the staged kernel's function.
-    ``donate``       — accepted and ignored: the port never writes its input
-                       state, as JAX ignores donation on the CPU.
+    ``donate``       — whether the fused path's staged kernel may write the
+                       result into the input state's planes (its donated
+                       pass writes only what the batch changes).  True
+                       donates, False never does, None
+                       leaves it to the entry point: ``apply_ops`` does not
+                       donate, ``apply_ops_safe``, which replaces its
+                       caller's state, does.  The reference engine, the
+                       single-buffer kernel and the TTL path ignore it.
     ``block_b``/``tile_table`` — the staged kernel's warps a block (1 to
                        8; None and 0 keep the kernel's own count), explicit
                        or from the table (:meth:`resolve_blocks`,
@@ -104,7 +110,7 @@ class ExecConfig:
 
     impl: str = "auto"
     pipeline: str = "auto"
-    donate: bool = False
+    donate: bool | None = None
     block_q: int | None = None
     block_b: int | None = None
     tile_table: TileTable | None = None

@@ -419,9 +419,17 @@ def _apply_ops_reference(
 
 
 def _apply_ops_plain(
-    state: FliXState, ops: OpBatch, *, impl: str, cfg: ExecConfig, has_ranges=None
+    state: FliXState,
+    ops: OpBatch,
+    *,
+    impl: str,
+    cfg: ExecConfig,
+    has_ranges=None,
+    donate: bool = False,
 ):
-    """Dispatch one TTL-free batch to the chosen executor (impl resolved)."""
+    """Dispatch one TTL-free batch to the chosen executor (impl resolved).
+    ``donate`` (resolved by :func:`_apply`: only the fused path's staged
+    kernel donates) runs the staged kernel's donated pass."""
     if impl == "reference":
         return _apply_ops_reference(
             state, ops, max_results=cfg.max_results, has_ranges=has_ranges
@@ -432,15 +440,17 @@ def _apply_ops_plain(
 
     nb, npb, ns = state.geometry
     _, block_b = cfg.resolve_blocks(nb * npb * ns, ops.size)
+    staged = cfg.resolve_pipeline(state.device)
     return flix_apply(
         state,
         ops.tag,
         ops.key,
         ops.val,
         max_results=cfg.max_results,
-        staged=cfg.resolve_pipeline(state.device),
+        staged=staged,
         block_b=block_b or 0,
         has_ranges=has_ranges,
+        donate=donate,
     )
 
 
@@ -548,11 +558,29 @@ def apply_ops(
     expired state; ``stats["expired"]`` counts the reclaimed rows.
     ``now=None`` skips the expire pass (expiry columns are still kept).
 
+    ``config.donate`` True lets the fused path's staged kernel write the
+    result into the input state's planes (``kernels.flix_apply``'s donated
+    pass): the result then holds the input's ``keys``, ``vals``,
+    ``node_count`` and ``node_max`` tensors, and the caller must not read
+    the input afterwards.  A donated call whose batch overflows a bucket,
+    or whose input already needs restructuring, writes nothing and returns
+    the input's planes flagged ``needs_restructure``, its reads unanswered.
+    False and None (the default here) write a new state; the reference
+    engine, the single-buffer kernel and the TTL path always do.
+
     On bucket overflow the returned state carries ``needs_restructure`` and
     the overflowing buckets are untrustworthy; hosts use
     :func:`apply_ops_safe`.
     """
     cfg = config if config is not None else ExecConfig()
+    out, _ = _apply(state, ops, cfg, has_updates=has_updates, has_ranges=has_ranges, now=now)
+    return out
+
+
+def _apply(state: FliXState, ops: OpBatch, cfg: ExecConfig, *, has_updates, has_ranges, now):
+    """:func:`apply_ops`'s body: ``((state', results, stats), donated)``,
+    where ``donated`` says whether the call ran the donated pass, which
+    only the fused path's staged kernel runs, on a state without expiry."""
     impl = cfg.impl
     if impl == "auto":
         if state.device.type != "cuda":
@@ -563,10 +591,11 @@ def apply_ops(
             impl = "fused" if has_updates else "reference"
     # TTL is structural: an expiry column on the state or on the batch
     if state.exps is not None or ops.exp is not None:
-        return _apply_ops_ttl(
-            state, ops, impl=impl, cfg=cfg, now=now, has_ranges=has_ranges
-        )
-    return _apply_ops_plain(state, ops, impl=impl, cfg=cfg, has_ranges=has_ranges)
+        out = _apply_ops_ttl(state, ops, impl=impl, cfg=cfg, now=now, has_ranges=has_ranges)
+        return out, False
+    donate = bool(cfg.donate) and impl == "fused" and cfg.resolve_pipeline(state.device)
+    out = _apply_ops_plain(state, ops, impl=impl, cfg=cfg, has_ranges=has_ranges, donate=donate)
+    return out, donate
 
 
 def _update_mask(tag: torch.Tensor) -> torch.Tensor:
@@ -583,9 +612,17 @@ def apply_ops_safe(
 ):
     """Host-level loop: apply, restructure-and-retry on overflow.
 
-    The retry replays the whole batch on the regrown pre-batch state, which
-    is safe because ``apply_ops`` never writes its input; OP_EXPIRE counts
-    as an insert when the new geometry is sized.
+    This driver replaces its caller's state, so it donates the input to
+    ``apply_ops`` unless ``config.donate`` is False: the result may hold
+    the input's planes, written in place, and the caller must not read the
+    input afterwards.  A donated call writes nothing when the batch
+    overflows a bucket or the input already needs restructuring, so the
+    input is whole wherever the result needs restructuring.  The retry
+    replays the whole batch, without donating, on the regrown pre-batch
+    state; where the donated pass met an input that already needed
+    restructuring, the batch is run again without donating and that result
+    returned, as without donation.
+    OP_EXPIRE counts as an insert when the new geometry is sized.
     ``config.validate_ranges`` runs ``check_range_results`` on the results
     and ``config.validate`` runs ``check_invariants`` on the result state,
     I6 at ``now`` included — except after a batch that wrote rows already
@@ -594,14 +631,21 @@ def apply_ops_safe(
     """
     with trace.span("apply_ops_safe"):
         cfg = config if config is not None else ExecConfig()
-        run_cfg = cfg.replace(validate=False, validate_ranges=False)
+        run_cfg = cfg.replace(donate=False, validate=False, validate_ranges=False)
         restructure_retries = 0
-        new_state, results, stats = apply_ops(
-            state, ops, config=run_cfg, has_updates=has_updates, now=now
+        (new_state, results, stats), donated = _apply(
+            state, ops, run_cfg.replace(donate=cfg.donate is not False),
+            has_updates=has_updates, has_ranges=None, now=now,
         )
-        if trace.host_bool(new_state.needs_restructure, "needs_restructure") and not (
-            trace.host_bool(state.needs_restructure, "input_needs_restructure")
+        needs = trace.host_bool(new_state.needs_restructure, "needs_restructure")
+        if needs and trace.host_bool(
+            state.needs_restructure, "input_needs_restructure"
         ):
+            if donated:  # the donated pass wrote nothing: the batch again, not donated
+                new_state, results, stats = apply_ops(
+                    state, ops, config=run_cfg, has_updates=has_updates, now=now
+                )
+        elif needs:
             with trace.span("restructure"):
                 n_ins = trace.host_int(
                     ((ops.tag == OP_INSERT) | (ops.tag == OP_EXPIRE)).sum(), "restructure.inserts"

@@ -70,8 +70,12 @@ def bucket_chunks(nb: int, per_bucket: int) -> list[tuple[int, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class FliXState:
-    """Functional FliX instance: a frozen bundle of int32 tensors on one
-    device.  Operations return new states and never write their input."""
+    """FliX instance: a frozen bundle of int32 tensors on one device.
+    Operations return new states and write their input only where the
+    caller donates it (``ExecConfig.donate``; ``apply_ops_safe`` does by
+    default): a donated state's ``keys``, ``vals``, ``node_count`` and
+    ``node_max`` become the result's, and the caller must not read them as
+    the old state afterwards."""
 
     keys: torch.Tensor  # [nb, npb, ns] EMPTY-padded
     vals: torch.Tensor  # [nb, npb, ns]

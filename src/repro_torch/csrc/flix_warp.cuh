@@ -43,10 +43,12 @@
 //     re-chunk, overflow past npb pieces with the pieces past the last slot
 //     dropped.
 //
-// Bound on the card: bytes.  Every pass here is functional (the old state
-// stays valid for a restructure-and-retry), so it writes every stripe whole,
-// and of the old stripe it needs only the rows that hold keys, which is all
-// these kernels read of it.  The output is written from shared memory in
+// Bound on the card: bytes.  The functional passes (the old state stays
+// valid for a restructure-and-retry) write every stripe whole, and of the
+// old stripe need only the rows that hold keys, which is all these kernels
+// read of it.  The staged kernel's donated pass writes in place instead: only
+// the updated buckets, and of those the rows that held or now hold keys
+// (write_compacted's end).  The output is written from shared memory in
 // 16-byte stores, 512 bytes a warp instruction.
 #pragma once
 
@@ -458,14 +460,21 @@ struct Merged {
   int slots, pieces;
 };
 
-// Steps 1-4 of the update path: upsert-merge the insert slice ib/ibv[0, m)
-// into the bucket's nn live rows in slot r (the incoming value wins) with
-// the region re-chunk of r.Nmax's regions; the result lands in s.M/s.Mv.
+// What merge_plan leaves: the stripe keys the merge keeps and the pieces of
+// the re-chunk (more than npb: the bucket overflows).
+struct Plan {
+  int kept, pieces;
+};
+
+// Steps 1-3 of the update path: the upsert merge's plan for the insert
+// slice ib[0, m) against the bucket's nn live rows in slot r (r.A and
+// r.Nmax), into the scratch's masks and per-region tables.  Reads nothing
+// of r.Av; merge_inserts goes on from it, and a pass that only needs to
+// know whether a bucket overflows stops here.
 template <class R>
-__device__ inline Merged merge_inserts(const R& r, const Scratch& s, const int* ib,
-                                       const int* ibv, int m, int nn, int npb, int ns,
-                                       int lane) {
-  const int S = npb * ns, L = nn * ns, onn_c = max(nn - 1, 0);
+__device__ inline Plan merge_plan(const R& r, const Scratch& s, const int* ib, int m, int nn,
+                                  int npb, int ns, int lane) {
+  const int L = nn * ns, onn_c = max(nn - 1, 0);
   const unsigned below = lanes_below(lane);
 
   // 1. stripe keys not upserted (the incoming value wins), by ballot
@@ -526,6 +535,20 @@ __device__ inline Merged merge_inserts(const R& r, const Scratch& s, const int* 
     f += __shfl_sync(kFull, im, 31);
     pieces += __shfl_sync(kFull, is, 31);
   }
+  return Plan{nK, pieces};
+}
+
+// Steps 1-4 of the update path: upsert-merge the insert slice ib/ibv[0, m)
+// into the bucket's nn live rows in slot r (the incoming value wins) with
+// the region re-chunk of r.Nmax's regions; the result lands in s.M/s.Mv.
+template <class R>
+__device__ inline Merged merge_inserts(const R& r, const Scratch& s, const int* ib,
+                                       const int* ibv, int m, int nn, int npb, int ns,
+                                       int lane) {
+  const int S = npb * ns, L = nn * ns, onn_c = max(nn - 1, 0);
+  const unsigned below = lanes_below(lane);
+  const Plan plan = merge_plan(r, s, ib, m, nn, npb, ns, lane);
+  const int nK = plan.kept, pieces = plan.pieces;
   const int L2 = min(pieces, npb) * ns;  // the merged slots that may hold keys
   for (int i = lane; i < L2; i += 32) {
     s.M[i] = kEmpty;
@@ -640,14 +663,17 @@ __device__ inline Compacted delete_compact(const Scratch& s, const int* src, con
 }
 
 // Step 7 of the update path: write bucket b's compacted stripe src[0,
-// nn * ns) (delete_compact's dst, node counts in s.Cnt) and its metadata;
-// the output's node max also lands in nmax (the slot's Nmax, which the
-// staged kernel's reads use).
+// nn * ns) (delete_compact's dst, node counts in s.Cnt) over its slots [0,
+// end) (-1: the whole stripe; a pass that writes in place passes the rows
+// that held or now hold keys, the rest being EMPTY / 0 already) and its
+// metadata; the output's node max also lands in nmax (the slot's Nmax,
+// which the staged kernel's reads use).
 __device__ inline void write_compacted(const Scratch& s, const int* src, const int* srcv, int nn,
                                        int* nmax, const StripeOut& o, int b, int npb, int ns,
-                                       int lane) {
+                                       int lane, int end = -1) {
   const int S = npb * ns;
-  write_rows(src, srcv, nn * ns, o.keys + (size_t)b * S, o.vals + (size_t)b * S, S, lane);
+  write_rows(src, srcv, nn * ns, o.keys + (size_t)b * S, o.vals + (size_t)b * S,
+             end < 0 ? S : end, lane);
   const size_t mb = (size_t)b * npb;
   for (int j = lane; j < npb; j += 32) {
     const int c = s.Cnt[j];

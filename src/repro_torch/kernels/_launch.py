@@ -20,6 +20,7 @@ from repro_torch.kernels._build import load_library
 LAUNCHES = {
     "flix_apply": 0,
     "flix_apply_staged": 0,
+    "flix_apply_staged_inplace": 0,
     "flix_apply_range": 0,
     "flix_apply_rank": 0,
     "flix_point_query": 0,

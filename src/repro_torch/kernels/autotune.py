@@ -264,7 +264,8 @@ def _measure_rows(rows, *, build_size, batch_size, node_size, nodes_per_bucket, 
     ops, _ = make_ops(tags, torch.cat([qk, ik]), torch.cat([qk, ik]), device=dev)
     del keys, qk, ik, tags
     for r in rows:
-        cfg = ExecConfig(impl="fused", pipeline="on", block_b=r["block_b"])
+        # every timed call runs on the one state: never donate it
+        cfg = ExecConfig(impl="fused", pipeline="on", block_b=r["block_b"], donate=False)
         apply_ops(state, ops, config=cfg)  # warm-up: the library's build, the opt-in
         times = []
         for _ in range(3):

@@ -22,6 +22,15 @@ other's witness on the card:
     slot of its ring; a bucket with no insert and no delete writes its rows
     straight back.
 
+Both write a new state.  The staged kernel's donated pass
+(:func:`flix_apply_inplace_pass`, ``ExecConfig.donate``) writes the result
+into the input's planes instead, and only where the batch updates: a plan
+kernel lists the buckets with inserts or deletes and finds any overflow,
+and where there is none the staged walk over that list writes them back (an
+upsert of a held key only its value), then a thread an op answers the reads
+from the result; an overflow, or a state already flagged for restructuring,
+leaves the input whole.
+
 Two more launches serve the RANGE ops: the count kernel of
 ``csrc/flix_range.cu`` ranks them under the batch's RANGE mask
 (``flix_apply_rank``), and its gather fills the dense RANGE output, a thread
@@ -220,16 +229,129 @@ def flix_apply_staged_pass(num_nodes, *args, block_b: int = 0):
     return _stripe_pass(args, num_nodes=num_nodes, block_b=block_b)
 
 
-def _stripe_pass(args, *, num_nodes=None, block_b: int = 0):
-    """Check the stripe pass's inputs, then run the plain version (CPU), the
-    single-buffer kernel, or (given ``num_nodes``) the staged kernel in
-    blocks of ``block_b`` warps."""
+def flix_apply_inplace_pass(
+    num_nodes, node_count, needs_restructure, val, bucket, *args, block_b: int = 0
+):
+    """The donated stripe pass (``csrc/flix_apply_staged.cu``'s
+    ``flix_apply_inplace_launch``): the function of
+    :func:`flix_apply_staged_pass` on the same ``args``, its result written
+    into the input's ``keys``, ``vals`` (``args[:2]``), ``node_count`` and
+    ``node_max`` (``args[2]``), which the caller must not read as the old
+    state afterwards.  Only what the batch changes is written: an upsert of
+    a key the bucket holds, its value; a bucket with deletes or an insert of
+    a key it does not hold, its rows that held or now hold keys and its
+    metadata.  ``val`` [ops] is the sorted batch's value column, ``bucket``
+    [ops] each op's bucket, clamped into range (``core.query._bucket_index``):
+    upserts and reads go a thread an op.
+
+    Writes nothing when any bucket would overflow or ``needs_restructure``
+    (the state's one-element bool flag) is set; the stats still count.
+    Returns ``(num_nodes, value, succ_key, counts)``: the result's new [nb]
+    ``num_nodes`` (the input's copied where no bucket was written), the
+    reads as :func:`flix_apply_pass` answers them (unanswered where nothing
+    was written), and [5] int32 counts: the inserts (each bucket's slice cut
+    at its capacity), the keys deleted, the buckets that overflow, the
+    buckets merged (with deletes, or an insert of a key they do not hold;
+    where nothing is written, those with deletes), and the buckets with
+    inserts whose overflow took the merge's plan to decide
+    (``nn + m > npb``).  Its plain version is
+    :func:`flix_apply_inplace_reference`, which runs on the CPU."""
+    keys, vals, node_max = args[:3]
+    nb, npb, ns = keys.shape
+    n = args[11].shape[0]
+    dev = keys.device
+    check(dev, ("num_nodes", "node_count", "val", "bucket"),
+          (num_nodes, node_count, val, bucket))
+    if num_nodes.shape != (nb,) or node_count.shape != (nb, npb):
+        raise ValueError("num_nodes and node_count disagree with the planes' geometry")
+    if val.shape != (n,) or bucket.shape != (n,):
+        raise ValueError(f"val and bucket must have shape ({n},), an entry an op")
+    nr = needs_restructure
+    if nr.dtype != torch.bool or nr.numel() != 1 or nr.device != dev:
+        raise ValueError(
+            f"needs_restructure must be a one-element bool tensor on {dev}"
+        )
+    if not 0 <= block_b <= STAGED_MAX_WARPS:
+        raise ValueError(
+            f"flix_apply_staged_inplace: block_b={block_b} warps a block; the "
+            f"kernel takes 0 (its own count) to {STAGED_MAX_WARPS}"
+        )
+    _check_pass(args)
+    if dev.type == "cpu":
+        return flix_apply_inplace_reference(
+            num_nodes, node_count, needs_restructure, val, bucket, *args
+        )
+    check_smem("flix_apply_staged", "flix_apply_staged_smem_bytes", npb, ns, dev,
+               warps=block_b)
+    work_cap = min(nb, n)
+    outs = tuple(torch.empty((k,), dtype=torch.int32, device=dev) for k in (nb, n, n))
+    lists = torch.empty((2, max(work_cap, 1)), dtype=torch.int32, device=dev)
+    fresh = torch.empty(((nb + 31) // 32,), dtype=torch.int32, device=dev)
+    counts = torch.empty((5,), dtype=torch.int32, device=dev)
+    launch("flix_apply_staged_inplace", "flix_apply_inplace_launch", dev, *args,
+           num_nodes, node_count, nr, val, bucket, *outs, lists[0], lists[1], fresh,
+           counts, nb, npb, ns, n, work_cap, block_b)
+    return (*outs, counts)
+
+
+def flix_apply_inplace_reference(
+    num_nodes, node_count, needs_restructure, val, bucket, *args
+):
+    """Plain torch version of :func:`flix_apply_inplace_pass`, from the
+    functional pass's plain version: where no bucket overflows and the state
+    needs no restructuring, each bucket whose inserts all upsert held keys,
+    with no delete, gets its live values from it, and each other bucket with
+    inserts or deletes its rows that held or now hold keys, node counts,
+    node max and ``num_nodes``, in place.  ``val`` and ``bucket`` are not
+    read: the insert slices carry the values, the op slices the buckets."""
+    keys, vals, node_max = args[:3]
+    ins_starts, ins_ends, del_starts, del_ends = args[5], args[6], args[8], args[9]
+    nb, npb, ns = keys.shape
+    S = npb * ns
+    n = args[11].shape[0]
+    out = flix_apply_reference(*args)
+    okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = out
+    m = ins_ends - ins_starts
+    dn = del_ends - del_starts
+    nn = torch.clamp(num_nodes, 0, npb)
+    overflowed = ((oflow > 0) | (m > S)).sum(dtype=torch.int32)
+    upd = (m > 0) | (dn > 0)
+    # no delete, and as many keys after as before: every insert upserted a held key
+    live = keys != EMPTY
+    held = (dn == 0) & (m > 0) & ((okeys != EMPTY).sum((1, 2)) == live.sum((1, 2)))
+    merged = upd & ~held
+    counts = torch.stack([
+        torch.clamp(m, max=S).sum(dtype=torch.int32),
+        odel.sum(dtype=torch.int32),
+        overflowed,
+        merged.sum(dtype=torch.int32),
+        ((m > 0) & (m <= S) & (nn + m > npb)).sum(dtype=torch.int32),
+    ])
+    new_nn = num_nodes.clone()
+    if bool(needs_restructure) or int(overflowed) > 0:
+        counts[1] = 0
+        # the plan lists the buckets with deletes before the overflow is known
+        counts[3] = (dn > 0).sum(dtype=torch.int32)
+        miss = torch.full((n,), NOT_FOUND, dtype=torch.int32, device=keys.device)
+        return new_nn, miss, torch.full_like(miss, EMPTY), counts
+    vals[held] = torch.where(live[held], ovals[held], vals[held])
+    reach = torch.maximum(nn, onn)
+    rows = merged[:, None] & (torch.arange(npb, device=keys.device) < reach[:, None])
+    keys[rows] = okeys[rows]
+    vals[rows] = ovals[rows]
+    node_count[merged] = ocnt[merged]
+    node_max[merged] = omax[merged]
+    new_nn[merged] = onn[merged]
+    return new_nn, value, succ_key, counts
+
+
+def _check_pass(args):
+    """The stripe pass's inputs: int32, contiguous, on one device, in
+    agreeing shapes."""
     keys, vals, node_max, ins_keys, ins_vals = args[:5]
     tag, key = args[10:12]
-    nb, npb, ns = keys.shape
-    n = key.shape[0]
-    dev = keys.device
-    check(dev, _PASS_INPUTS, args)
+    nb, npb, _ = keys.shape
+    check(keys.device, _PASS_INPUTS, args)
     if vals.shape != keys.shape or node_max.shape != (nb, npb):
         raise ValueError("keys, vals and node_max disagree in geometry")
     bounds = (args[5], args[6], args[8], args[9], args[12], args[13])
@@ -237,6 +359,17 @@ def _stripe_pass(args, *, num_nodes=None, block_b: int = 0):
         raise ValueError(f"per-bucket slice bounds must have shape ({nb},)")
     if ins_vals.shape != ins_keys.shape or tag.shape != key.shape:
         raise ValueError("batch columns disagree in length")
+
+
+def _stripe_pass(args, *, num_nodes=None, block_b: int = 0):
+    """Check the stripe pass's inputs, then run the plain version (CPU), the
+    single-buffer kernel, or (given ``num_nodes``) the staged kernel in
+    blocks of ``block_b`` warps."""
+    keys, vals, node_max = args[:3]
+    nb, npb, ns = keys.shape
+    n = args[11].shape[0]
+    dev = keys.device
+    _check_pass(args)
     if dev.type == "cpu":
         return flix_apply_reference(*args)
 
@@ -397,6 +530,7 @@ def flix_apply(
     staged: bool = False,
     block_b: int = 0,
     has_ranges: bool | None = None,
+    donate: bool = False,
 ):
     """Fused mixed-batch apply.  Same contract as ``core.ops.apply_ops``.
 
@@ -409,20 +543,47 @@ def flix_apply(
     no counterpart: a warp finds its op slice from the batch's per-bucket
     bounds.  ``has_ranges`` says whether the batch holds RANGE ops, which
     spares the host a sync.
+
+    ``donate`` (with ``staged``) runs the donated pass
+    (:func:`flix_apply_inplace_pass`): the result takes the input's
+    ``keys``, ``vals``, ``node_count`` and ``node_max`` planes, written in
+    place, and a new ``num_nodes``; the caller must not read the input
+    state's planes afterwards.  Where a bucket overflows, or the input
+    already needs restructuring, nothing is written: the result is the
+    input's planes, flagged ``needs_restructure``, with its reads
+    unanswered (``apply_ops_safe`` then reruns the batch without donating).
     """
+    if donate and not staged:
+        raise ValueError(
+            "donate runs the staged kernel's in-place pass: pass staged=True"
+        )
     cap = state.bucket_capacity
     n = key.shape[0]
     dev = state.device
 
     args, r = stripe_inputs(state, tag, key, val)
-    if staged:
-        outs = flix_apply_staged_pass(state.num_nodes, *args, block_b=block_b)
+    b = _bucket_index(state, key)
+    if donate:
+        onn, value, succ_key, counts = flix_apply_inplace_pass(
+            state.num_nodes, state.node_count, state.needs_restructure, val, b, *args,
+            block_b=block_b,
+        )
+        okeys, ovals = state.keys, state.vals
+        ocnt, omax = state.node_count, state.node_max
+        inserted, deleted, overflowed = counts[0], counts[1], counts[2]
+        any_overflow = overflowed > 0
     else:
-        outs = flix_apply_pass(*args)
-    okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = outs
-    true_counts = r.ins_ends - r.ins_starts
-    slice_overflow = true_counts > cap
-    any_overflow = (oflow > 0).any() | slice_overflow.any()
+        if staged:
+            outs = flix_apply_staged_pass(state.num_nodes, *args, block_b=block_b)
+        else:
+            outs = flix_apply_pass(*args)
+        okeys, ovals, ocnt, omax, onn, oflow, odel, value, succ_key = outs
+        true_counts = r.ins_ends - r.ins_starts
+        slice_overflow = true_counts > cap
+        any_overflow = (oflow > 0).any() | slice_overflow.any()
+        inserted = torch.clamp(true_counts, max=cap).sum(dtype=torch.int32)
+        deleted = odel.sum(dtype=torch.int32)
+        overflowed = ((oflow > 0) | slice_overflow).sum(dtype=torch.int32)
     new_state = FliXState(
         keys=okeys,
         vals=ovals,
@@ -437,7 +598,6 @@ def flix_apply(
     # the next non-empty bucket, from the post-update fence rows
     with trace.span("fused.successor"):
         next_key, next_val = fence_rows(okeys, ovals, num_nodes=onn)
-        b = _bucket_index(state, key)
         out_key = next_key[b]
         out_val = next_val[b]
         fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
@@ -472,9 +632,9 @@ def flix_apply(
         "range_count": range_count,
     }
     stats = {
-        "inserted": torch.clamp(true_counts, max=cap).sum(dtype=torch.int32),
-        "deleted": odel.sum(dtype=torch.int32),
-        "overflowed_buckets": ((oflow > 0) | slice_overflow).sum(dtype=torch.int32),
+        "inserted": inserted,
+        "deleted": deleted,
+        "overflowed_buckets": overflowed,
         "range_truncated": rtrunc,
     }
     return new_state, results, stats

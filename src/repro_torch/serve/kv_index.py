@@ -427,14 +427,16 @@ class KVPageIndex:
             )
             self._commit(new, now)
         elif n_alloc == 0 and n_getset == 0:
-            # only inserts can overflow: free steps skip apply_ops_safe
-            cfg = self.config.replace(max_results=range_budget)
+            # only inserts can overflow: free steps skip apply_ops_safe.  The
+            # old state's planes are donated to the step, unless pinned
+            # versions alias them (snapshot_window > 0)
+            cfg = self.config.replace(max_results=range_budget, donate=self._donate())
             new, results, stats = apply_ops(
                 self.state, ops, config=cfg, has_updates=True, now=now
             )
             self._commit(new, now)
         else:
-            cfg = self.config.replace(max_results=range_budget)
+            cfg = self.config.replace(max_results=range_budget, donate=self._donate())
             new, results, stats = apply_ops_safe(
                 self.state, ops, config=cfg, has_updates=True, now=now
             )
@@ -484,6 +486,11 @@ class KVPageIndex:
                 raise ValueError(
                     "the same page appears in both allocs and getsets within one step"
                 )
+
+    def _donate(self) -> bool:
+        """Whether an update step may write the committed state in place: not
+        where pinned versions alias it, nor where the config forbids it."""
+        return self.snapshot_window == 0 and self.config.donate is not False
 
     def _commit(self, new, now: int | None) -> None:
         """Install an update step's state, advance the version, and with a

@@ -80,7 +80,7 @@ def test_kernels_match_plain_versions_on_card(cuda, ns, npb):
 def test_engine_fused_matches_reference_on_card(cuda):
     st, ops_ = _random_case(np.random.default_rng(5), 1 << 15, 32, 16, cuda)
     cfg = tcore.ExecConfig(max_results=4096)
-    a = tcore.apply_ops_safe(st, ops_, config=cfg.replace(impl="fused"))
+    a = tcore.apply_ops_safe(st, ops_, config=cfg.replace(impl="fused", donate=False))
     b = tcore.apply_ops_safe(st, ops_, config=cfg.replace(impl="reference"))
     for f in ("keys", "node_count", "node_max", "num_nodes"):
         assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
@@ -329,6 +329,112 @@ def test_staged_kernel_matches_single_buffer_and_plain_on_card(cuda, ns, npb, ca
     _equal(fa.flix_apply_pass(*args), got, f"staged vs single ({case})")
     _equal(fa.flix_apply_reference(*args), got, f"staged vs plain ({case})")
     premise(got, r)
+
+
+def _planes(st):
+    """Copies of the four planes a donated pass writes."""
+    return [st.keys.clone(), st.vals.clone(), st.node_count.clone(), st.node_max.clone()]
+
+
+def _donated(st, args, val, planes, flag=None, block_b=0):
+    """The donated pass (kernel on the card, plain version on the CPU) on
+    ``planes`` (keys, vals, node_count, node_max), written in place."""
+    from repro_torch.core.query import _bucket_index
+
+    k, v, cnt, mx = planes
+    dev = k.device
+    nr = (st.needs_restructure if flag is None else flag).to(dev)
+    b = _bucket_index(st, args[11].to(st.device)).to(dev)
+    rest = [a.to(dev) for a in args[3:]]
+    return fa.flix_apply_inplace_pass(st.num_nodes.to(dev), cnt, nr, val.to(dev), b, k, v, mx,
+                                      *rest, block_b=block_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STAGED_CASES)
+@pytest.mark.parametrize("ns,npb", EDGE_GEOMETRIES)
+def test_donated_pass_matches_staged_and_plain_on_card(cuda, ns, npb, case):
+    """The donated pass (plan and in-place write) on the staged kernel's
+    edge cases: byte for byte its plain version, outputs and the planes it
+    writes; where no bucket overflows, the functional staged pass's keys,
+    counts, node max, num_nodes, reads and live values, with the inserts
+    and deletes its stats count; where one does (flood, full bucket), the
+    planes untouched and the overflow counted."""
+    st, ops_, _ = stripe_case(ns, npb, case, cuda)
+    args, r = fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)
+    args = list(args)
+    want = fa.flix_apply_staged_pass(st.num_nodes, *args)
+    _equal(fa.flix_apply_pass(*args), want, f"staged vs single ({case})")
+    before = dict(LAUNCHES)
+    planes = _planes(st)
+    got = _donated(st, args, ops_.val, planes)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_apply_staged_inplace"] == before["flix_apply_staged_inplace"] + 1
+    assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"]
+    cpu = [t.cpu() for t in _planes(st)]
+    plain = _donated(st, [a.cpu() for a in args], ops_.val, cpu)
+    _equal(plain, [t.cpu() for t in got], f"donated vs plain ({case})")
+    _equal(cpu, [t.cpu() for t in planes], f"donated planes vs plain ({case})")
+    true_counts = r.ins_ends - r.ins_starts
+    overflowed = int(((want[5] > 0) | (true_counts > ns * npb)).sum())
+    counts = got[3].tolist()
+    assert counts[0] == int(torch.clamp(true_counts, max=ns * npb).sum())
+    assert counts[2] == overflowed
+    if overflowed:
+        _equal(_planes(st), planes, f"overflow leaves the planes ({case})")
+        assert counts[1] == 0 and torch.equal(got[0], st.num_nodes)
+        return
+    live = want[0] != EMPTY
+    assert counts[1] == int(want[6].sum())
+    for i, j in ((0, 0), (2, 2), (3, 3)):
+        assert torch.equal(planes[i], want[j]), (case, i)
+    assert torch.equal(planes[1][live], want[1][live])
+    _equal(want[4:5] + want[7:9], got[:3], f"donated counts and reads ({case})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npb", [(32, 16), (4, 2)])
+def test_donated_pass_writes_nothing_on_a_flagged_state_on_card(cuda, ns, npb):
+    """A state already flagged ``needs_restructure``: the donated pass
+    writes no byte of its planes, at any warps a block, and still counts."""
+    st, ops_, _ = stripe_case(ns, npb, "mixed", cuda)
+    args = list(fa.stripe_inputs(st, ops_.tag, ops_.key, ops_.val)[0])
+    flag = torch.ones((), dtype=torch.bool, device=cuda)
+    for w in (0, 1, 8):
+        planes = _planes(st)
+        got = _donated(st, args, ops_.val, planes, flag=flag, block_b=w)
+        torch.cuda.synchronize()
+        _equal(_planes(st), planes, f"flagged state, {w} warps")
+        assert int(got[3][1]) == 0 and int(got[3][0]) > 0
+        assert bool((got[1] == tcore.NOT_FOUND).all()) and torch.equal(got[0], st.num_nodes)
+
+
+@pytest.mark.cuda
+def test_engine_donates_and_matches_functional_on_card(cuda):
+    """``apply_ops_safe`` donates by default on the card: three mixed
+    batches in a row, each on the state the last one wrote in place, equal
+    plane for plane and result for result to the functional path on its own
+    copy, the donated kernel launched instead of the functional one."""
+    rng = np.random.default_rng(21)
+    st, _ = _random_case(rng, 1 << 16, 32, 16, cuda)
+    copy = tcore.FliXState(*_planes(st), st.num_nodes.clone(), st.mkba, st.needs_restructure)
+    cfg = tcore.ExecConfig(max_results=4096)
+    for i in range(3):
+        ops_ = _random_case(rng, 1 << 16, 32, 16, cuda)[1]
+        before = dict(LAUNCHES)
+        got = tcore.apply_ops_safe(st, ops_, config=cfg)
+        assert LAUNCHES["flix_apply_staged_inplace"] == before["flix_apply_staged_inplace"] + 1
+        assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"]
+        assert got[0].keys is st.keys
+        want = tcore.apply_ops_safe(copy, ops_, config=cfg.replace(donate=False))
+        assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
+        for f in ("keys", "vals", "node_count", "node_max", "num_nodes", "needs_restructure"):
+            assert torch.equal(getattr(got[0], f), getattr(want[0], f)), (i, f)
+        for k in want[1]:
+            assert torch.equal(got[1][k], want[1][k]), (i, k)
+        for k in want[2]:
+            assert int(got[2][k]) == int(want[2][k]), (i, k)
+        st, copy = got[0], want[0]
 
 
 @pytest.mark.cuda
@@ -1085,7 +1191,7 @@ def test_pipeline_on_launches_the_staged_kernel(cuda):
     st, ops_ = _random_case(np.random.default_rng(15), 1 << 15, 32, 16, cuda)
     cfg = tcore.ExecConfig(impl="fused", max_results=4096)
     before = dict(LAUNCHES)
-    on = tcore.apply_ops_safe(st, ops_, config=cfg.replace(pipeline="on"))
+    on = tcore.apply_ops_safe(st, ops_, config=cfg.replace(pipeline="on", donate=False))
     assert LAUNCHES["flix_apply_staged"] == before["flix_apply_staged"] + 1
     assert LAUNCHES["flix_apply"] == before["flix_apply"]
     off = tcore.apply_ops_safe(st, ops_, config=cfg.replace(pipeline="off"))

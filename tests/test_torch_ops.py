@@ -203,8 +203,17 @@ def test_apply_ops_overflow_pre_retry_state():
             assert int(wstats[k]) == int(gstats[k]), (impl, k)
 
 
-@pytest.mark.parametrize("impl", ["reference", "fused"])
-def test_apply_ops_safe_retry_matches_reference(impl):
+@pytest.mark.parametrize(
+    "impl,pipeline,donate",
+    [
+        pytest.param("reference", "auto", None, id="reference"),
+        pytest.param("fused", "auto", None, id="fused"),
+        # the staged kernel's plain version: donated (the driver's default) or not
+        pytest.param("fused", "on", None, id="fused-staged-donated"),
+        pytest.param("fused", "on", False, id="fused-staged-not-donated"),
+    ],
+)
+def test_apply_ops_safe_retry_matches_reference(impl, pipeline, donate):
     """The retry regrows the pre-batch state and replays the whole batch:
     same geometry, state and results as the reference's apply_ops_safe."""
     js, ts, tags, bkeys, bvals = _flood()
@@ -212,7 +221,8 @@ def test_apply_ops_safe_retry_matches_reference(impl):
     tops, _ = tcore.make_ops(tags, bkeys, bvals, pad_to=256, device="cpu")
     want = jcore.apply_ops_safe(js, jops, config=JExecConfig(impl="reference"))
     got = tcore.apply_ops_safe(
-        ts, tops, config=tcore.ExecConfig(impl=impl, validate=True, validate_ranges=True)
+        ts, tops, config=tcore.ExecConfig(impl=impl, pipeline=pipeline, donate=donate,
+                                          validate=True, validate_ranges=True)
     )
     assert got[2]["restructure_retries"] == want[2]["restructure_retries"] == 1
     assert got[0].geometry == want[0].geometry

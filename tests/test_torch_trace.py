@@ -119,7 +119,7 @@ def test_off_without_a_profiler():
 def test_spans_and_sync_marks_of_one_batch(case, tmp_path):
     make, impl, want = CASES[case]
     state, ops, kw = make()
-    cfg = core.ExecConfig(impl=impl, max_results=RANGE_BUDGET)
+    cfg = core.ExecConfig(impl=impl, max_results=RANGE_BUDGET, donate=False)
     plain = core.apply_ops_safe(state, ops, config=cfg, **kw)
     out = {}
     got = profiled(lambda: out.setdefault(
@@ -244,12 +244,13 @@ def test_a_batch_reads_the_card_only_at_its_marks(card, kind, monkeypatch):
     batch = batches[kind]
     cfg = core.ExecConfig()
 
-    def run(st):
+    def run(st, cfg=cfg):
         ops, perm = core.make_ops(*batch, device=card)
         st, res, stats = core.apply_ops_safe(st, ops, config=cfg)
         return st, {k: core.unsort(res[k], perm) for k in ("value", "succ_key")}, stats
 
-    run(state)  # builds and loads the kernel library, warms the allocator
+    # builds and loads the kernel library, warms the allocator; keeps the state
+    run(state, cfg.replace(donate=False))
     torch.cuda.synchronize()
     sites = []
 
