@@ -379,7 +379,18 @@ library's; a W that does not fit raises ``ValueError`` naming it; the
 config's ``block_b`` and a tuned tile table reach the launch through
 ``apply_ops``.  Phase 4b (after 4): ``autotune([2^24], [2^20], node_size=32,
 nodes_per_bucket=16, measure=True)``, the model's pick, the measured pick and
-every candidate's time.
+every candidate's time.  Phase 4c (after 4b): the read-only pass
+(flix_apply_read) at the benchmark's flix-u26 size, 2^26 keys of a 2^29-key
+ring at 32 x 16, fill 0.5 (2^22 buckets): three read-only batches of 2^20
+ops (YCSB-C's scrambled Zipfian reads; 40,000 reads of one key beside
+uniform hits and misses; POINT, SUCCESSOR and RANGE with keys 0 and
+MAX_VALID and NOP padding) through ``apply_ops_safe`` with the default
+config, each one launch of the read kernel and of no stripe kernel, held
+against the plain-torch reference engine, the input state returned and no
+byte of its planes written; the kernel byte for byte its plain version on
+each batch, and timed queued and as a call beside its bound (each op's
+columns and answers, and the node_max row and located key row of every
+bucket the reads touch, each once, at 3.35 TB/s).
 
 Each phase prints its seconds.  The script needs one card and exits non-zero
 without one, or when it runs without the repository's ``src/`` beside it.
@@ -499,6 +510,9 @@ KERNELS = {
     # its state to the jitted kernel
     "flix_apply_staged_inplace": ("flix_apply_staged.cu",
                                   "src/repro/kernels/flix_apply.py:851"),
+    # the read-only pass, where the reference answers an update-free batch
+    # by its jnp reads
+    "flix_apply_read": ("flix_apply_staged.cu", "src/repro/core/ops.py:646"),
     "flix_apply_range": ("flix_range.cu", "src/repro/kernels/flix_apply.py:327"),
     # the jnp rank plumbing that flix_apply_pallas runs beside its kernel
     "flix_apply_rank": ("flix_range.cu", "src/repro/kernels/flix_apply.py:558"),
@@ -1350,6 +1364,145 @@ def phase_main(dev):
                                 call_ms=fmean(f_call_ms), plain_ms=fplain_ms,
                                 bound_ms=fmean(fbounds), err=e4),
     }
+
+
+READ_BITS = 29  # phase 4c: the key ring of flixbench's flix-u26 (2^29 keys)
+READ_KEYS = 1 << 26  # phase 4c: its build
+READ_OPS = 1 << 20  # phase 4c: a batch (the u26 cells')
+READ_HOT = 40_000  # phase 4c: one key's reads (the Zipfian head: 2^20 / 26.47)
+READ_REPS = 10  # phase 4c: timed calls of the read kernel
+
+
+def read_batches(ring, live: int, gen):
+    """Phase 4c's read-only batches of READ_OPS ops, each (label, tags,
+    keys, vals): YCSB-C's scrambled Zipfian POINT reads of the live ring;
+    READ_HOT reads of one live key beside uniform hits and keys of the
+    whole ring (mostly misses); POINT (half hits), SUCCESSOR and RANGE
+    (width 64) ops with keys 0 and MAX_VALID, padded with NOPs."""
+    from flixbench.keys import scrambled_zipf
+    from repro_torch import core
+
+    dev = gen.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = READ_OPS
+
+    def hits(k):
+        return ring.key(torch.randint(0, live, (k,), generator=gen, device=dev))
+
+    def anywhere(k):
+        return torch.randint(0, 1 << READ_BITS, (k,), generator=gen, **i32)
+
+    point = torch.full((n,), core.OP_POINT, **i32)
+    zipf = ring.key(scrambled_zipf(n, live, gen))
+    half = n // 2
+    hot = torch.cat([hits(1).repeat(READ_HOT), hits(half - READ_HOT), anywhere(n - half)])
+    n_pt, n_succ, n_rng = n // 2 - 32, n // 2 - 1024, 1024 - 64
+    edge = torch.tensor([0, core.MAX_VALID], **i32).repeat(16)
+    lo = anywhere(n_rng)
+    edge_tags = torch.tensor([core.OP_POINT, core.OP_POINT, core.OP_SUCCESSOR,
+                              core.OP_SUCCESSOR], **i32).repeat(8)
+    tags = torch.cat([torch.full((n_pt,), core.OP_POINT, **i32), edge_tags,
+                      torch.full((n_succ,), core.OP_SUCCESSOR, **i32),
+                      torch.full((n_rng,), core.OP_RANGE, **i32)])
+    keys = torch.cat([hits(n_pt // 2), anywhere(n_pt - n_pt // 2), edge, anywhere(n_succ), lo])
+    vals = torch.cat([torch.zeros(n - 64 - n_rng, **i32), lo + 64])  # 64 NOPs pad it
+    zeros = torch.zeros(n, **i32)
+    return [("zipf", point, zipf, zeros), ("hot", point, hot, zeros),
+            ("mixed", tags, keys, vals)]
+
+
+def read_bytes(state, ops) -> int:
+    """The least the read kernel moves on ``ops``: each op's tag and key
+    read and its value, successor key and bucket written (5 int32), and,
+    once each, the node_max row and num_nodes of every bucket that a POINT
+    or SUCCESSOR op reads and the key row of every node it locates in.  The
+    fences' binary search is left out (16 MB that L2 holds)."""
+    from repro_torch import core
+
+    nb, npb, ns = state.geometry
+    reads = (ops.tag == core.OP_POINT) | (ops.tag == core.OP_SUCCESSOR)
+    q = ops.key[reads]
+    b = torch.searchsorted(state.mkba, q).clamp(max=nb - 1)
+    node = (state.node_max[b] < q[:, None]).sum(1).clamp(max=npb - 1)
+    buckets = torch.unique(b).numel()
+    rows = torch.unique(b * npb + node).numel()
+    return 5 * 4 * ops.key.numel() + buckets * (npb + 1) * 4 + rows * ns * 4
+
+
+def phase_read(dev):
+    """Phase 4c (see the module's docstring): the read-only pass on the
+    benchmark's u26 state.  Returns the flix_apply_read measurements."""
+    from flixbench.keys import KeyRing
+    from repro_torch import core
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import flix_apply as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 38)
+    ring = KeyRing(READ_BITS, 2 * READ_KEYS, SEED)
+    keys, vals = ring.window(0, READ_KEYS, dev)
+    state, build_ms = host_ms(lambda: core.build(keys, vals, node_size=32, nodes_per_bucket=16,
+                                                 fill=0.5, device=dev))
+    del keys, vals
+    nb, npb, ns = state.geometry
+    log(f"phase 4c: the read-only pass on {READ_KEYS} keys of a 2^{READ_BITS}-key ring, "
+        f"nb={nb} npb={npb} ns={ns}, {state.memory_bytes() / 1e9:.3f} GB of state, build "
+        f"{build_ms:.1f} ms")
+    fields = ("keys", "vals", "node_count", "node_max", "num_nodes", "mkba",
+              "needs_restructure")
+    pristine = {f: getattr(state, f).clone() for f in fields}
+    cfg = core.ExecConfig(max_results=FULL_MAX_RESULTS)
+    launches, errs, k_ms, call_ms, bounds, plain = 0, [], [], [], [], []
+    for label, tags, keys, vals in read_batches(ring, READ_KEYS, gen):
+        ops, perm = core.make_ops(tags, keys, vals, pad_to=READ_OPS, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        got, e2e_ms = host_ms(lambda: core.apply_ops_safe(state, ops, config=cfg))
+        counts = {k: c for k, c in LAUNCHES.items() if c}
+        want = {"flix_apply_read": 1}
+        if label == "mixed":  # the SUCCESSOR fallback's fence rows, the RANGE plumbing
+            want.update(flix_fence_rows=1, flix_apply_rank=1, flix_apply_range=1)
+        if counts != want:
+            raise AssertionError(f"phase 4c {label}: launches {counts}, expected {want}")
+        launches += counts["flix_apply_read"]
+        if got[0] is not state or got[2]["restructure_retries"] != 0:
+            raise AssertionError(f"phase 4c {label}: a new state or a retry")
+        ref, ref_ms = host_ms(
+            lambda: core.apply_ops_safe(state, ops, config=cfg.replace(impl="reference")))
+        check_same(f"phase 4c {label}: read pass vs reference engine", got, ref)
+        if label == "mixed":
+            core.check_range_results(ops, got[1], max_results=cfg.max_results)
+        answered = int((got[1]["value"] != core.NOT_FOUND).sum())
+        del got, ref
+        for f in fields:
+            if not torch.equal(pristine[f], getattr(state, f)):
+                raise AssertionError(f"phase 4c {label}: the read pass wrote {f}")
+        args = (state.keys, state.vals, state.node_max, state.num_nodes, state.mkba, ops.tag,
+                ops.key)
+        kernel = lambda: fa.flix_apply_read_pass(*args)  # noqa: E731
+        want_k, plain_ms = host_ms(lambda: fa.flix_apply_read_reference(*args))
+        errs.append(max_abs_err(want_k, kernel()))
+        plain.append(plain_ms)
+        del want_k
+        k_ms.append(queued_ms(kernel, READ_REPS))
+        call_ms.append(event_ms(kernel, READ_REPS))
+        moved = read_bytes(state, ops)
+        bounds.append(moved / HBM_BYTES_PER_S * 1e3)
+        log(f"  {label}: apply_ops_safe {e2e_ms:.3f} ms (synced; {READ_OPS / e2e_ms * 1e3:.6g} "
+            f"ops/s), {answered} ops answered; reference engine {ref_ms:.3f} ms; "
+            f"flix_apply_read {k_ms[-1]:.4f} ms queued, {call_ms[-1]:.4f} ms a call, against "
+            f"its {bounds[-1]:.5f} ms bound ({moved} bytes, {k_ms[-1] / bounds[-1]:.2f}x); "
+            f"plain version {plain_ms:.1f} ms, max_abs_err {errs[-1]}; launches {counts}")
+        if errs[-1]:
+            raise AssertionError(f"phase 4c {label}: flix_apply_read disagrees with its plain "
+                                 f"version ({errs[-1]})")
+    log(f"  the planes are byte for byte the build's after every batch; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, pristine
+    free_card()
+    return {"flix_apply_read": dict(launches=launches, ms=fmean(k_ms), call_ms=fmean(call_ms),
+                                    plain_ms=fmean(plain), bound_ms=fmean(bounds),
+                                    err=max(errs))}
 
 
 DONATED_OPS = (1 << 14, 1 << 20)  # the benchmark's two YCSB-A batch sizes
@@ -5568,6 +5721,7 @@ def main() -> int:
         ("3k", lambda: phase_warps(dev)),
         ("4", lambda: merge(measured, phase_main(dev))),
         ("4b", lambda: serve_launches.append(phase_autotune(dev))),
+        ("4c", lambda: merge(measured, phase_read(dev))),
         ("5", lambda: merge(measured, phase_fig9(dev, check))),
         ("6", lambda: serve_launches.append(phase_serve(dev))),
         ("7", lambda: merge(measured, phase_range(dev, check))),

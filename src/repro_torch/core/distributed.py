@@ -887,8 +887,10 @@ def shard_apply_ops(
     overflows); rows past it are dropped and counted in
     ``stats["a2a_overflow"]``.
 
-    ``config.impl="auto"`` resolves once per batch, as ``apply_ops`` does:
-    fused on CUDA when the batch has updates, reference otherwise.
+    ``config.impl="auto"`` resolves once per batch: fused on CUDA when the
+    batch has updates, reference otherwise (``apply_ops`` runs its
+    read-only pass for a batch without updates on CUDA; the shards keep the
+    reference for it).
     ``has_updates`` / ``has_ranges`` answer those checks without a sync.
     An expiry column on the index or the batch promotes every shard to TTL.
     On bucket overflow the returned index carries ``needs_restructure``:

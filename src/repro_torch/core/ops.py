@@ -26,7 +26,10 @@ expiry plane (``_apply_ops_ttl``).
 Two executors sit behind one contract (``ExecConfig.impl``): the plain
 torch *reference* engine, which shares ``insert_with_slices``, ``delete``
 and the ``core.query`` reads, and the *fused* path of
-``kernels/flix_apply``, one CUDA thread block per bucket.  Precondition: at
+``kernels/flix_apply``, a thread block or a warp per bucket.  On the card
+``"auto"`` takes the fused path for a batch with updates and, for one
+without, its read-only pass (``flix_apply_read``): one kernel, a thread an
+op, that writes nothing, and no routing.  Precondition: at
 most one update op (INSERT, DELETE or EXPIRE) per key per batch.  ``OP_NOP`` slots
 (key ``EMPTY``) pad a batch to a fixed size.
 """
@@ -427,13 +430,18 @@ def _apply_ops_plain(
     has_ranges=None,
     donate: bool = False,
 ):
-    """Dispatch one TTL-free batch to the chosen executor (impl resolved).
-    ``donate`` (resolved by :func:`_apply`: only the fused path's staged
-    kernel donates) runs the staged kernel's donated pass."""
+    """Dispatch one TTL-free batch to the chosen executor (impl resolved:
+    ``"read"`` is ``"auto"``'s choice for a batch without updates on the
+    card).  ``donate`` (resolved by :func:`_apply`: only the fused path's
+    staged kernel donates) runs the staged kernel's donated pass."""
     if impl == "reference":
         return _apply_ops_reference(
             state, ops, max_results=cfg.max_results, has_ranges=has_ranges
         )
+    if impl == "read":
+        from repro_torch.kernels.flix_apply import flix_apply_read
+
+        return flix_apply_read(state, ops.tag, ops.key, ops.val, max_results=cfg.max_results)
     if impl != "fused":
         raise ValueError(f"unknown apply_ops impl: {impl!r}")
     from repro_torch.kernels.flix_apply import flix_apply
@@ -545,10 +553,14 @@ def apply_ops(
 
     ``config.impl`` selects the executor: ``"reference"`` (plain torch),
     ``"fused"`` (``kernels.flix_apply``: the CUDA kernel on the card, its
-    plain version on the CPU), or ``"auto"`` — fused on CUDA for batches
-    that contain updates, reference otherwise.  ``has_updates`` answers that
-    check without a device sync when the caller already knows, and
-    ``has_ranges`` whether the batch holds RANGE ops.
+    plain version on the CPU), or ``"auto"`` — on CUDA the fused path for
+    batches that contain updates and, for batches without, the read-only
+    pass (``kernels.flix_apply.flix_apply_read``, which returns ``state``
+    itself), except under TTL (an expiry column), where those take the
+    reference; on the CPU the reference.
+    ``has_updates`` answers that check without a device sync when the
+    caller already knows, and ``has_ranges`` whether the batch holds RANGE
+    ops.
     ``config.pipeline`` picks the fused path's stripe kernel
     (:meth:`ExecConfig.resolve_pipeline`).
 
@@ -566,7 +578,8 @@ def apply_ops(
     or whose input already needs restructuring, writes nothing and returns
     the input's planes flagged ``needs_restructure``, its reads unanswered.
     False and None (the default here) write a new state; the reference
-    engine, the single-buffer kernel and the TTL path always do.
+    engine, the single-buffer kernel and the TTL path always do.  The
+    read-only pass writes none, whatever ``donate`` says.
 
     On bucket overflow the returned state carries ``needs_restructure`` and
     the overflowing buckets are untrustworthy; hosts use
@@ -583,19 +596,25 @@ def _apply(state: FliXState, ops: OpBatch, cfg: ExecConfig, *, has_updates, has_
     only the fused path's staged kernel runs, on a state without expiry."""
     impl = cfg.impl
     if impl == "auto":
-        if state.device.type != "cuda":
+        if state.device.type not in _KERNEL_DEVICES:
             impl = "reference"
         else:
             if has_updates is None:
                 has_updates = trace.host_bool(_update_mask(ops.tag).any(), "has_updates")
-            impl = "fused" if has_updates else "reference"
+            impl = "fused" if has_updates else "read"
     # TTL is structural: an expiry column on the state or on the batch
     if state.exps is not None or ops.exp is not None:
+        impl = "reference" if impl == "read" else impl
         out = _apply_ops_ttl(state, ops, impl=impl, cfg=cfg, now=now, has_ranges=has_ranges)
         return out, False
     donate = bool(cfg.donate) and impl == "fused" and cfg.resolve_pipeline(state.device)
     out = _apply_ops_plain(state, ops, impl=impl, cfg=cfg, has_ranges=has_ranges, donate=donate)
     return out, donate
+
+
+# the device types on which impl="auto" runs the kernels; elsewhere it runs
+# the reference engine (the kernels' plain versions run on any device)
+_KERNEL_DEVICES = ("cuda",)
 
 
 def _update_mask(tag: torch.Tensor) -> torch.Tensor:

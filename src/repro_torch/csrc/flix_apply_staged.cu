@@ -67,6 +67,14 @@
 // apply_ops_safe's functional rerun and retry.  A bucket the batch leaves
 // alone keeps its bytes, which are the functional pass's on every state the
 // engine makes (EMPTY keys, 0 values and counts past the live slots).
+//
+// The read-only pass (flix_apply_read_launch) serves a batch without
+// updates: one kernel, a thread per op, that finds each op's bucket by a
+// binary search of the fences (the 16 MB of a 2^22-bucket index stay in
+// L2), locates it as the donated pass's reads do, and writes nothing of the
+// state.  A thread an op and not a warp a run of buckets: a skewed batch
+// reads a hot key tens of thousands of times, and a warp that owned its
+// bucket would answer them 32 at a time.
 #include <cuda_runtime.h>
 
 #include "flix_warp.cuh"
@@ -206,7 +214,9 @@ constexpr int kInserted = 0, kDeleted = 1, kOverflowed = 2, kWritten = 3, kCheck
 constexpr int kPlanThreads = 256, kPlanPerThread = 4;
 // the blocks of the kernels a thread an op
 constexpr int kOpThreads = 256;
-constexpr int kOpInsert = 0;
+constexpr int kOpInsert = 0, kOpRange = 5;
+// the bits of the read pass's class word: the batch holds SUCCESSOR ops, RANGE ops
+constexpr int kHasSuccessor = 1, kHasRange = 2;
 // the lane whose staged scalar is the bucket's index: the walk goes by a list
 constexpr int kBucket = kBoundInts - 1;
 static_assert(kBucket > kNumNodes, "the bucket's index takes a scalar of its own");
@@ -424,10 +434,31 @@ __global__ void __launch_bounds__(MaxWarps * 32)
   if ((threadIdx.x & 31) == 0 && deleted != 0) atomicAdd(counts + kDeleted, deleted);
 }
 
+// A POINT or SUCCESSOR op's answer from bucket b's rows (keys, vals
+// [nb, npb, ns], node_max [nb, npb], nn of them active): a POINT op's value
+// where the bucket holds q, a SUCCESSOR op's in-bucket candidate (its key
+// and value).  Where q lies above every key of the bucket, or the POINT
+// key is absent, value and succ keep what the caller set.
+__device__ __forceinline__ void answer_op(const int* keys, const int* vals, const int* node_max,
+                                          int nn, int npb, int ns, int b, int tg, int q,
+                                          int& value, int& succ) {
+  const int S = npb * ns;
+  const int* row = keys + (size_t)b * S;
+  const Located l = locate(row, node_max + (size_t)b * npb, min(max(nn, 0), npb), npb, ns, q);
+  const int at = l.node * ns + l.pos;
+  if (!l.in_bucket || l.raw_pos >= ns) return;
+  if (tg == kOpPoint) {
+    if (row[at] == q) value = vals[(size_t)b * S + at];
+  } else {
+    succ = row[at];
+    value = vals[(size_t)b * S + at];
+  }
+}
+
 // The reads of the donated pass, a thread per op, writing every op's value
 // and successor key: a POINT or SUCCESSOR op of bucket bucket[i]'s slice
 // located in the bucket's post-update rows (nn_out of them; node max EMPTY
-// past them) and answered as read_ops answers; (NOT_FOUND, EMPTY) for the
+// past them) and answered by answer_op; (NOT_FOUND, EMPTY) for the
 // rest, and for every op where nothing was written.
 __global__ void __launch_bounds__(kOpThreads)
     flix_apply_inplace_read_kernel(const ApplyArgs a, const int* __restrict__ bucket,
@@ -435,28 +466,47 @@ __global__ void __launch_bounds__(kOpThreads)
                                    const unsigned char* __restrict__ needs_restructure, int n,
                                    int nb, int npb, int ns) {
   const bool none = counts[kOverflowed] != 0 || *needs_restructure != 0;
-  const int S = npb * ns;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     int value = kMiss, succ = kEmpty;
     const int tg = none ? -1 : a.op_tag[i];
     const int b = tg == kOpPoint || tg == kOpSuccessor ? bucket[i] : -1;
-    if (b >= 0 && b < nb && i >= a.op_starts[b] && i < a.op_ends[b]) {
-      const int q = a.op_key[i];
-      const int nn = min(max(a.nn_out[b], 0), npb);
-      const int* keys = a.keys + (size_t)b * S;
-      const Located l = locate(keys, a.node_max + (size_t)b * npb, nn, npb, ns, q);
-      const int at = l.node * ns + l.pos;
-      const bool use_in = l.in_bucket && l.raw_pos < ns;
-      if (tg == kOpPoint) {
-        if (use_in && keys[at] == q) value = a.vals[(size_t)b * S + at];
-      } else if (use_in) {
-        succ = keys[at];
-        value = a.vals[(size_t)b * S + at];
-      }
-    }
+    if (b >= 0 && b < nb && i >= a.op_starts[b] && i < a.op_ends[b])
+      answer_op(a.keys, a.vals, a.node_max, a.nn_out[b], npb, ns, b, tg, a.op_key[i], value,
+                succ);
     a.value_out[i] = value;
     a.succ_out[i] = succ;
   }
+}
+
+// The read-only pass, a thread per op, on a state the batch does not
+// write: the op's bucket by a binary search of the fences (clamped to the
+// last bucket, as the engine routes: a key above the last fence finds no
+// row there), then a POINT or SUCCESSOR op answered by answer_op from the
+// bucket's num_nodes active rows; (NOT_FOUND, EMPTY) for the rest.  Writes every op's bucket, and
+// ORs into *classes the kHasSuccessor and kHasRange bits of the ops it
+// met, one atomic a warp that met any.  No restructure flag gates it: a
+// flagged state is read as it stands.
+__global__ void __launch_bounds__(kOpThreads)
+    flix_apply_read_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
+                           const int* __restrict__ node_max, const int* __restrict__ num_nodes,
+                           const int* __restrict__ mkba, const int* __restrict__ op_tag,
+                           const int* __restrict__ op_key, int* __restrict__ value_out,
+                           int* __restrict__ succ_out, int* __restrict__ bucket_out,
+                           int* classes, int n, int nb, int npb, int ns) {
+  int seen = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int tg = op_tag[i], q = op_key[i];
+    const int b = min(lower_bound(mkba, nb, q), nb - 1);
+    int value = kMiss, succ = kEmpty;
+    if (tg == kOpPoint || tg == kOpSuccessor)
+      answer_op(keys, vals, node_max, num_nodes[b], npb, ns, b, tg, q, value, succ);
+    seen |= (tg == kOpSuccessor ? kHasSuccessor : 0) | (tg == kOpRange ? kHasRange : 0);
+    value_out[i] = value;
+    succ_out[i] = succ;
+    bucket_out[i] = b;
+  }
+  seen = __reduce_or_sync(kFull, seen);
+  if ((threadIdx.x & 31) == 0 && seen != 0) atomicOr(classes, seen);
 }
 
 using StagedKernel = decltype(&flix_apply_staged_kernel<kMaxWarps>);
@@ -573,6 +623,30 @@ int flix_apply_inplace_launch(int* keys, int* vals, int* node_max, const int* in
   flix_apply_inplace_read_kernel<<<grid, kOpThreads, 0, st>>>(a, bucket, counts,
                                                               needs_restructure, n_ops, nb,
                                                               npb, ns);
+  return (int)cudaGetLastError();
+}
+
+// The read-only pass: zero classes[1], then flix_apply_read_kernel over the
+// n_ops ops of the sorted batch (op_tag, op_key) against the state's planes
+// keys, vals [nb, npb, ns], node_max [nb, npb], num_nodes and the fences
+// mkba [nb] (nb >= 1), none of which it writes; value_out, succ_out and
+// bucket_out [n_ops] receive every op's answer and bucket.  Returns the
+// CUDA error code.
+int flix_apply_read_launch(const int* keys, const int* vals, const int* node_max,
+                           const int* num_nodes, const int* mkba, const int* op_tag,
+                           const int* op_key, int* value_out, int* succ_out, int* bucket_out,
+                           int* classes, int nb, int npb, int ns, int n_ops, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int e = (int)cudaMemsetAsync(classes, 0, sizeof(int), st);
+  if (e != 0 || n_ops == 0) return e;
+  if (nb < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return e;
+  const int op_blocks = (n_ops + kOpThreads - 1) / kOpThreads, most = 8 * sms;
+  flix_apply_read_kernel<<<op_blocks < most ? op_blocks : most, kOpThreads, 0, st>>>(
+      keys, vals, node_max, num_nodes, mkba, op_tag, op_key, value_out, succ_out, bucket_out,
+      classes, n_ops, nb, npb, ns);
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,7 @@ SIGNATURES = {
     "flix_apply_staged_blocks_per_sm": ([_I, _I, _I], _I),
     "flix_apply_staged_launch": ([_P] * 24 + [_I] * 4 + [_P], _I),
     "flix_apply_inplace_launch": ([_P] * 26 + [_I] * 6 + [_P], _I),
+    "flix_apply_read_launch": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "flix_range_count_launch": ([_P] * 10 + [_I] * 4 + [_P], _I),
     "flix_range_gather_launch": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
     "flix_query_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),

@@ -21,6 +21,7 @@ LAUNCHES = {
     "flix_apply": 0,
     "flix_apply_staged": 0,
     "flix_apply_staged_inplace": 0,
+    "flix_apply_read": 0,
     "flix_apply_range": 0,
     "flix_apply_rank": 0,
     "flix_point_query": 0,

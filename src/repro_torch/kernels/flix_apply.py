@@ -31,6 +31,12 @@ upsert of a held key only its value), then a thread an op answers the reads
 from the result; an overflow, or a state already flagged for restructuring,
 leaves the input whole.
 
+A batch without updates takes none of that on the card
+(:func:`flix_apply_read`): the read-only pass (:func:`flix_apply_read_pass`)
+answers every op, a thread an op, from the input state, which nothing
+writes; only a batch with SUCCESSOR or RANGE ops runs the O(nb) fence rows
+or the RANGE plumbing below.
+
 Two more launches serve the RANGE ops: the count kernel of
 ``csrc/flix_range.cu`` ranks them under the batch's RANGE mask
 (``flix_apply_rank``), and its gather fills the dense RANGE output, a thread
@@ -81,6 +87,7 @@ from repro_torch.core.state import EMPTY, NOT_FOUND, FliXState, bucket_chunks
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels._launch import _require_cuda, check, check_smem, launch
 from repro_torch.kernels._phases import compact_chunk, merge_chunk, slice_hits
+from repro_torch.kernels.flix_query import query_chunks
 from repro_torch.kernels.flix_range import flix_range_count, range_gather
 from repro_torch.kernels.flix_successor import fence_rows
 
@@ -479,6 +486,104 @@ def flix_apply_reference(
 
 
 # ---------------------------------------------------------------------------
+# the read-only pass
+# ---------------------------------------------------------------------------
+
+# the bits of the read pass's class word (csrc/flix_apply_staged.cu's
+# kHasSuccessor, kHasRange)
+HAS_SUCCESSOR = 1
+HAS_RANGE = 2
+
+_READ_INPUTS = ("keys", "vals", "node_max", "num_nodes", "mkba", "tag", "key")
+
+
+def flix_apply_read_pass(keys, vals, node_max, num_nodes, mkba, tag, key):
+    """The read-only pass (``csrc/flix_apply_staged.cu``'s
+    ``flix_apply_read_launch``), a thread an op, on a state that it does not
+    write: each op's bucket by a binary search of the fences ``mkba``,
+    clamped to the last bucket as the engine routes; a POINT op's value or
+    NOT_FOUND, a SUCCESSOR op's in-bucket candidate or (NOT_FOUND, EMPTY),
+    (NOT_FOUND, EMPTY) for every other op.  ``keys``/``vals`` [nb, npb, ns],
+    ``node_max`` [nb, npb], ``num_nodes`` and ``mkba`` [nb] are the state's;
+    ``tag``/``key`` the sorted batch.  Returns ``(value, succ_key, bucket,
+    classes)``: ``bucket`` each op's, and ``classes`` [1] the OR of
+    :data:`HAS_SUCCESSOR` and :data:`HAS_RANGE` over the batch's ops.  Its
+    plain version is :func:`flix_apply_read_reference`, which runs on the
+    CPU."""
+    nb, npb, ns = keys.shape
+    n = key.shape[0]
+    dev = keys.device
+    check(dev, _READ_INPUTS, (keys, vals, node_max, num_nodes, mkba, tag, key))
+    if vals.shape != keys.shape or node_max.shape != (nb, npb):
+        raise ValueError("keys, vals and node_max disagree in geometry")
+    if num_nodes.shape != (nb,) or mkba.shape != (nb,) or nb < 1:
+        raise ValueError(f"num_nodes and mkba must have shape ({nb},), nb >= 1")
+    if tag.shape != (n,):
+        raise ValueError("batch columns disagree in length")
+    if dev.type == "cpu":
+        return flix_apply_read_reference(keys, vals, node_max, num_nodes, mkba, tag, key)
+    outs = tuple(torch.empty((n,), dtype=torch.int32, device=dev) for _ in range(3))
+    classes = torch.empty((1,), dtype=torch.int32, device=dev)
+    launch("flix_apply_read", "flix_apply_read_launch", dev, keys, vals, node_max,
+           num_nodes, mkba, tag, key, *outs, classes, nb, npb, ns, n)
+    return (*outs, classes)
+
+
+def flix_apply_read_reference(keys, vals, node_max, num_nodes, mkba, tag, key):
+    """Plain torch version of :func:`flix_apply_read_pass`: the kernel's
+    formulas as compare-counts over the gathered rows, in op chunks."""
+    nb, npb, ns = keys.shape
+    n = key.shape[0]
+    value, succ_key, bucket = (torch.empty_like(key) for _ in range(3))
+    for c0, c1 in query_chunks(n, npb + ns):
+        q, tg = key[c0:c1], tag[c0:c1]
+        b = torch.clamp(torch.searchsorted(mkba, q, out_int32=True), max=nb - 1)
+        nidx = (node_max[b] < q[:, None]).sum(1, dtype=torch.int32)
+        node = torch.clamp(nidx, max=npb - 1)
+        raw_pos = (keys[b, node] < q[:, None]).sum(1, dtype=torch.int32)
+        pos = torch.clamp(raw_pos, max=ns - 1)
+        key_at = keys[b, node, pos]
+        val_at = vals[b, node, pos]
+        use_in = (nidx < torch.clamp(num_nodes[b], 0, npb)) & (raw_pos < ns)
+        is_succ = (tg == OP_SUCCESSOR) & use_in
+        hit = (tg == OP_POINT) & use_in & (key_at == q)
+        value[c0:c1] = torch.where(hit | is_succ, val_at, NOT_FOUND)
+        succ_key[c0:c1] = torch.where(is_succ, key_at, EMPTY)
+        bucket[c0:c1] = b
+    classes = (tag == OP_SUCCESSOR).any() * HAS_SUCCESSOR | (tag == OP_RANGE).any() * HAS_RANGE
+    return value, succ_key, bucket, classes.to(torch.int32).reshape(1)
+
+
+def flix_apply_read(
+    state: FliXState,
+    tag: torch.Tensor,
+    key: torch.Tensor,
+    val: torch.Tensor,
+    *,
+    max_results: int = DEFAULT_MAX_RESULTS,
+):
+    """A batch without updates (no INSERT, DELETE or EXPIRE op): the
+    results and stats of :func:`flix_apply` on it, from the read-only pass,
+    and ``state`` itself, which nothing writes.  One device-to-host read,
+    of the batch's op classes; SUCCESSOR ops past their bucket's largest key
+    take the fence rows (the state's successor cache where it carries one),
+    RANGE ops the count kernel and the gather, as in :func:`flix_apply`; a
+    batch of neither runs no O(nb) pass.  No restructure flag gates it: a
+    flagged state answers as the reference engine answers from it."""
+    with trace.span("read"):
+        value, succ_key, b, classes = flix_apply_read_pass(
+            state.keys, state.vals, state.node_max, state.num_nodes, state.mkba, tag, key
+        )
+        classes = trace.host_int(classes, "read.classes")
+        zero = torch.zeros((), dtype=torch.int32, device=state.device)
+        results, stats = answers(state, b, tag, key, val, value, succ_key, (zero,) * 3,
+                                 max_results=max_results, site="read",
+                                 has_successor=bool(classes & HAS_SUCCESSOR),
+                                 has_ranges=bool(classes & HAS_RANGE))
+    return state, results, stats
+
+
+# ---------------------------------------------------------------------------
 # launch 2: the dense RANGE gather
 # ---------------------------------------------------------------------------
 
@@ -594,26 +699,59 @@ def flix_apply(
         needs_restructure=state.needs_restructure | any_overflow,
     )
 
-    # SUCCESSOR past its bucket's largest post-update key: the first key of
-    # the next non-empty bucket, from the post-update fence rows
-    with trace.span("fused.successor"):
-        next_key, next_val = fence_rows(okeys, ovals, num_nodes=onn)
-        out_key = next_key[b]
-        out_val = next_val[b]
-        fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
-        succ_key = torch.where(fallback, out_key, succ_key)
-        value = torch.where(fallback & (out_key != EMPTY), out_val, value)
+    results, stats = answers(new_state, b, tag, key, val, value, succ_key,
+                             (inserted, deleted, overflowed), max_results=max_results,
+                             site="fused", has_ranges=has_ranges)
+    return new_state, results, stats
 
-    # RANGE: post-update rank fences and per-slot ranks, then the gather
+
+def answers(
+    state: FliXState,
+    b: torch.Tensor,
+    tag: torch.Tensor,
+    key: torch.Tensor,
+    val: torch.Tensor,
+    value: torch.Tensor,
+    succ_key: torch.Tensor,
+    counts,
+    *,
+    max_results: int,
+    site: str,
+    has_successor: bool = True,
+    has_ranges: bool | None = None,
+):
+    """The results and stats of a batch whose POINT and SUCCESSOR ops a
+    kernel answered in their buckets ``b`` (``value``, ``succ_key``), on
+    ``state`` as the batch leaves it: a SUCCESSOR op past its bucket's
+    largest key takes the first key of the next non-empty bucket (from the
+    state's successor cache where it carries one, else its fence rows), and
+    RANGE ops the count kernel and the range gather.  ``has_successor``
+    False skips the fallback; ``has_ranges`` None reads whether the batch
+    holds RANGE ops (one sync).  ``counts`` are the (inserted, deleted,
+    overflowed) stats; spans ``<site>.successor`` and ``<site>.range``."""
+    n = key.shape[0]
+    dev = state.device
+    if has_successor:
+        with trace.span(f"{site}.successor"):
+            if state.succ_smin is not None:
+                out_key = state.succ_smin[b + 1]
+                out_val = state.vals[state.succ_sidx[b + 1], 0, 0]
+            else:
+                next_key, next_val = fence_rows(state.keys, state.vals,
+                                                num_nodes=state.num_nodes)
+                out_key, out_val = next_key[b], next_val[b]
+            fallback = (tag == OP_SUCCESSOR) & (succ_key == EMPTY)
+            succ_key = torch.where(fallback, out_key, succ_key)
+            value = torch.where(fallback & (out_key != EMPTY), out_val, value)
+
+    # RANGE: rank fences and per-slot ranks, then the gather
     is_range = tag == OP_RANGE
     if has_ranges is None:
         has_ranges = trace.host_bool(is_range.any(), "has_ranges")
     if has_ranges:
-        with trace.span("fused.range"):
-            g, pref, rstart, remit, rtrunc = range_slots(
-                new_state, is_range, key, val, max_results
-            )
-            rk, rv = flix_apply_range_pass(g, pref, ocnt, okeys, ovals)
+        with trace.span(f"{site}.range"):
+            g, pref, rstart, remit, rtrunc = range_slots(state, is_range, key, val, max_results)
+            rk, rv = flix_apply_range_pass(g, pref, state.node_count, state.keys, state.vals)
             range_start = torch.where(is_range, rstart, 0)
             range_count = torch.where(is_range, remit, 0)
     else:
@@ -631,10 +769,11 @@ def flix_apply(
         "range_start": range_start,
         "range_count": range_count,
     }
+    inserted, deleted, overflowed = counts
     stats = {
         "inserted": inserted,
         "deleted": deleted,
         "overflowed_buckets": overflowed,
         "range_truncated": rtrunc,
     }
-    return new_state, results, stats
+    return results, stats

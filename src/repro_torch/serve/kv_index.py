@@ -394,7 +394,9 @@ class KVPageIndex:
         has_ranges = n_range > 0
         if read_only:
             # the state is untouched: keep the pre-batch state, and run the
-            # reference engine (the fused pass would rewrite every stripe)
+            # reference engine.  apply_ops' read-only pass would serve these
+            # steps too; they stay on the reference until a benchmark cell
+            # measures them
             cfg = self.config.replace(impl="reference", max_results=range_budget)
             state = self.state if pinned is None else pinned
             if self.mesh is not None:

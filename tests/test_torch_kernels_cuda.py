@@ -21,6 +21,8 @@ from repro_torch.kernels import flix_range as fr  # noqa: E402
 from repro_torch.kernels import flix_successor as fs  # noqa: E402
 from repro_torch.kernels import grouped_matmul as tg  # noqa: E402
 from repro_torch.kernels import moe_dispatch as tmd  # noqa: E402
+from test_torch_read_pass import CASES as READ_CASES  # noqa: E402
+from test_torch_read_pass import read_case  # noqa: E402
 
 EMPTY = tcore.EMPTY
 GEOMETRIES = [(32, 16), (8, 8), (32, 64), (64, 8)]
@@ -1753,3 +1755,73 @@ def test_grouped_matmul_split_edge_values_on_card(cuda, T, E):
     assert not bool(torch.isfinite(want[7 * 6 + 3]).any())  # the inf rows are not finite
     assert bool(torch.isfinite(want[7 * 1 + 3]).all())  # 3.3e38 * w stays finite
     _assert_same_non_finite_and_close_by_row(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the read-only pass (tests/test_torch_read_pass.py holds its cases' plain
+# version against the reference engine on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _read_args(st):
+    return (st.keys, st.vals, st.node_max, st.num_nodes, st.mkba)
+
+
+def _all_planes(st):
+    return _planes(st) + [st.num_nodes.clone(), st.mkba.clone(), st.needs_restructure.clone()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(READ_CASES))
+def test_read_pass_matches_plain_and_reference_on_card(cuda, case):
+    """The read kernel byte for byte its plain version, one launch; the
+    read-only pass the reference engine's results and stats, on the input
+    state itself, whose planes it leaves as they were."""
+    st, ops_ = read_case(case, cuda)
+    before = _all_planes(st)
+    n0 = LAUNCHES["flix_apply_read"]
+    got = fa.flix_apply_read_pass(*_read_args(st), ops_.tag, ops_.key)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flix_apply_read"] == n0 + 1
+    _equal(fa.flix_apply_read_reference(*_read_args(st), ops_.tag, ops_.key), got,
+           f"read kernel vs plain ({case})")
+    want = tcore.ops._apply_ops_reference(st, ops_, max_results=64)
+    res = fa.flix_apply_read(st, ops_.tag, ops_.key, ops_.val, max_results=64)
+    assert res[0] is st
+    for k in want[1]:
+        assert torch.equal(want[1][k], res[1][k]), (case, k)
+    for k in want[2]:
+        assert int(want[2][k]) == int(res[2][k]), (case, k)
+    _equal(before, _all_planes(st), f"planes after the read pass ({case})")
+
+
+@pytest.mark.cuda
+def test_read_pass_on_a_skewed_batch_on_card(cuda):
+    """2^20 POINT reads of which one key takes 40,000 (the head of a
+    Zipfian batch), half the rest hits, half uniform: the kernel byte for
+    byte its plain version; ``apply_ops_safe`` launches it once and nothing
+    else, returns the input state, and writes no byte of its planes."""
+    rng = np.random.default_rng(38)
+    n = 1 << 20
+    keys = rng.choice(1 << 26, n, replace=False).astype(np.int32)
+    st = tcore.build(keys, keys ^ 0x5A5A, node_size=32, nodes_per_bucket=16, device=cuda)
+    q = np.concatenate([np.full(40000, keys[7]), rng.choice(keys, n // 2 - 40000),
+                        rng.integers(0, 1 << 26, n - n // 2)]).astype(np.int32)
+    rng.shuffle(q)
+    ops_, perm = tcore.make_ops(np.full(n, tcore.OP_POINT, np.int32), q, device=cuda)
+    got = fa.flix_apply_read_pass(*_read_args(st), ops_.tag, ops_.key)
+    _equal(fa.flix_apply_read_reference(*_read_args(st), ops_.tag, ops_.key), got,
+           "read kernel vs plain, skewed")
+    value = tcore.unsort(got[0], perm).cpu().numpy()
+    assert (value[q == keys[7]] == keys[7] ^ 0x5A5A).all()
+    assert int((got[0] != tcore.NOT_FOUND).sum()) >= n // 2
+    assert int(got[3]) == 0
+    planes = _all_planes(st)
+    before = dict(LAUNCHES)
+    res = tcore.apply_ops_safe(st, ops_, config=tcore.ExecConfig())
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == {
+        "flix_apply_read": 1}
+    assert res[0] is st and torch.equal(res[1]["value"], got[0])
+    assert res[2]["restructure_retries"] == 0
+    _equal(planes, _all_planes(st), "planes after a read-only batch")

@@ -38,6 +38,14 @@ def mixed_batch(exps=None):
     return core.make_ops(tags, keys, vals, exps=exps, device="cpu")[0]
 
 
+def read_batch():
+    """The reads of :func:`mixed_batch` alone: point, successor, range."""
+    tags = np.array([core.OP_POINT, core.OP_SUCCESSOR, core.OP_RANGE], np.int32)
+    keys = np.array([30, 41, 100], np.int32)
+    vals = np.array([0, 0, 200], np.int32)
+    return core.make_ops(tags, keys, vals, device="cpu")[0]
+
+
 def ttl_batch():
     """Inserts with deadlines, a get-or-set and a point read."""
     tags = np.array([core.OP_INSERT, core.OP_EXPIRE, core.OP_POINT], np.int32)
@@ -79,6 +87,14 @@ CASES = {
         ["apply_ops_safe", "route", "fused.successor", "sync.has_ranges", "fused.range",
          "sync.needs_restructure"],
     ),
+    # impl="auto" as on the card, with the kernels' plain versions: a batch
+    # without updates takes the read-only pass
+    "read": (
+        lambda: (tiny_state(), read_batch(), {}),
+        "auto",
+        ["apply_ops_safe", "sync.has_updates", "read", "sync.read.classes",
+         "read.successor", "read.range", "sync.needs_restructure"],
+    ),
     "ttl": (
         lambda: (tiny_state(exps=True), ttl_batch(), {"now": 20}),
         "reference",
@@ -116,9 +132,11 @@ def test_off_without_a_profiler():
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_spans_and_sync_marks_of_one_batch(case, tmp_path):
+def test_spans_and_sync_marks_of_one_batch(case, tmp_path, monkeypatch):
     make, impl, want = CASES[case]
     state, ops, kw = make()
+    if impl == "auto":
+        monkeypatch.setattr(core.ops, "_KERNEL_DEVICES", ("cuda", "cpu"))
     cfg = core.ExecConfig(impl=impl, max_results=RANGE_BUDGET, donate=False)
     plain = core.apply_ops_safe(state, ops, config=cfg, **kw)
     out = {}
@@ -227,9 +245,7 @@ def card_batches(dev, n_keys=1 << 16, n_ops=1 << 14, seed=5):
 
 CARD_SITES = {
     "ycsb_a": ["has_updates", "has_ranges", "needs_restructure"],
-    "ycsb_c": ["has_updates", "reference.has_insert", "reference.has_delete",
-               "reference.has_point", "reference.has_successor", "reference.has_range",
-               "needs_restructure"],
+    "ycsb_c": ["has_updates", "read.classes", "needs_restructure"],
 }
 
 
